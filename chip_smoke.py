@@ -5,12 +5,16 @@
 Phases, each of which must pass:
 
 1. device: print the card's name and power limit; build the hex-conv
-   kernel library from ``nuzero_tpu_torch/ops/cuda/csrc`` and check with
-   ``cuobjdump -sass`` that the bf16 kernel runs on Hopper's warpgroup
-   tensor cores (``HGMMA`` in its machine code);
+   kernel library from ``nuzero_tpu_torch/ops/cuda/csrc`` and check each
+   kernel's machine code with ``cuobjdump -sass`` (``SASS``): the bf16
+   kernel runs on Hopper's warpgroup tensor cores (``HGMMA``); the f32
+   kernel does FFMA on the CUDA cores, fed by ``cp.async`` (``LDGSTS``),
+   and holds no tensor-core instruction (no ``HMMA``, no ``HGMMA``);
 2. kernel check: the CUDA hex conv against its plain PyTorch version at
    every conv shape of the two self-play legs, plus 10x10 and 30x30
-   boards in both dtypes.  Kernel, plain and library times are taken in
+   boards in both dtypes and ragged f32 shapes (``RAGGED``: odd Cin, pixel
+   counts off the block size, odd and even widths, Cout of 1 and 42).
+   Kernel, plain and library times are taken in
    turns with CUDA events; the library call is the JAX package's XLA path
    as one cuDNN ``conv2d`` (``hex_conv_dual3x3``; only the ``conv2d`` is
    timed), and each shape's bound is computed from its shape (``bound``);
@@ -44,83 +48,66 @@ import subprocess
 import sys
 import time
 
+from nuzero_tpu_torch.ops.cuda.measure import (
+    CONVS_PER_EVAL, RAGGED, bound, card_line, conv_shapes, time_ms,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIMS = 30
 MOVES = 4
-CONVS_PER_EVAL = 17
 KERNEL_SOURCE = "nuzero_tpu_torch/ops/cuda/csrc/hexconv.cu"
 REPLACES = "nuzero_tpu/ops/pallas/hexconv_kernel.py:91"
 # (filters, dtype name, batch) of the two self-play legs.
 LEGS = ((256, "bfloat16", 768), (64, "float32", 512))
-# Peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 on the tensor
-# cores, f32 on the CUDA cores (the f32 kernel keeps f32 rounding, so TF32
-# is not its roofline), and device memory.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+# Instructions each kernel's SASS must hold, and must not hold.
+SASS = {"bfloat16": (("HGMMA",), ()), "float32": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))}
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def conv_shapes(filters: int, obs_channels: int = 86, policy_channels: int = 21):
-    """(Cin, Cout, count) of the hex convs of one RecurrentNet evaluation
-    at 2 iterations, 2 blocks, recall."""
-    from nuzero_tpu_torch.networks.blocks import _ramp
-
-    shapes = [(obs_channels, filters, 1), (filters + obs_channels, filters, 2),
-              (filters, filters, 8)]
-    for head in (_ramp(filters, policy_channels, 2), _ramp(filters, 1, 4)):
-        ins = [filters] + list(head[:-1])
-        shapes += [(i, o, 1) for i, o in zip(ins, head)]
-    assert sum(n for _, _, n in shapes) == CONVS_PER_EVAL
-    return shapes
-
-
-def bound(dtype_name, batch, rows, cols, cin, cout):
-    """The least time (ms) the card could take for one hex conv, and what
-    bounds it: 2*7*M*Cin*Cout operations at the dtype's peak, or x, W and y
-    each moved once at the memory rate."""
-    m = batch * rows * cols
-    size = 2 if dtype_name == "bfloat16" else 4
-    ops_ms = 2 * 7 * m * cin * cout / PEAK_FLOPS[dtype_name] * 1e3
-    bytes_ms = (m * cin + 7 * cin * cout + m * cout) * size / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
-
-
-def check_hgmma(library_path: str, kernel: str) -> int:
-    """Count HGMMA instructions in the SASS of every instantiation of
-    ``kernel`` in the built library; raise if one has none."""
-    import shutil
-
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", library_path], capture_output=True, text=True,
-                          check=True).stdout
+def sass_opcodes(sass: str, kernel: str, opcodes) -> dict:
+    """{function: {opcode: count}} for every function in ``cuobjdump -sass``
+    output whose name holds ``kernel``; an instruction counts under its
+    opcode without modifiers (``HGMMA.64x64x16.F32.BF16`` is ``HGMMA``)."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             if kernel in name:
-                counts[name] = 0
-        elif name in counts and "HGMMA" in line:
-            counts[name] += 1
-    if not counts or not all(counts.values()):
-        raise AssertionError(f"{kernel}: no HGMMA in its SASS ({counts})")
-    return sum(counts.values())
+                counts[name] = dict.fromkeys(opcodes, 0)
+        elif name in counts and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts[name]:
+                counts[name][op] += 1
+    return counts
 
 
-def time_ms(fn, reps: int) -> float:
-    import torch
+def check_sass(sass: str, kernel: str, must, must_not=()) -> dict:
+    """Raise unless every instantiation of ``kernel`` holds each opcode of
+    ``must`` and none of ``must_not``; returns the counts summed over them."""
+    counts = sass_opcodes(sass, kernel, (*must, *must_not))
+    if not counts:
+        raise AssertionError(f"{kernel}: not in the SASS")
+    for name, ops in counts.items():
+        missing = [op for op in must if not ops[op]]
+        forbidden = [op for op in must_not if ops[op]]
+        if missing or forbidden:
+            raise AssertionError(f"{kernel} ({name}): lacks {missing}, holds {forbidden}")
+    return {op: sum(ops[op] for ops in counts.values()) for op in (*must, *must_not)}
 
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+def dump_sass(library_path: str) -> str:
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", library_path], capture_output=True, text=True,
+                          check=True).stdout
 
 
 def kernel_check(dtype, batch, rows, cols, cin, cout, gen):
@@ -327,7 +314,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from nuzero_tpu_torch.ops.cuda.build import hexconv_library
     from nuzero_tpu_torch.ops.cuda.hexconv_kernel import KERNELS
 
@@ -335,28 +321,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # --- 1. device
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     library = hexconv_library()
     log(f"built hex-conv kernel library in {time.perf_counter() - t0:.1f} s")
-    bf16_kernel = KERNELS[torch.bfloat16]
-    log(f"{bf16_kernel}: {check_hgmma(library._name, bf16_kernel)} HGMMA instructions "
-        f"in its SASS")
+    sass = dump_sass(library._name)
+    for dtype_name, (must, must_not) in SASS.items():
+        kernel = KERNELS[getattr(torch, dtype_name)]
+        counts = check_sass(sass, kernel, must, must_not)
+        log(f"{kernel} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
 
     # --- 2. kernel check
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_dtype = {}
 
-    def check(dtype_name, batch, rows, cin, cout, label):
+    def check(dtype_name, batch, rows, cin, cout, label, cols=None):
+        cols = cols or rows
         err, scale, k_ms, p_ms, l_ms = kernel_check(
-            getattr(torch, dtype_name), batch, rows, rows, cin, cout, gen)
-        b_ms, b_by = bound(dtype_name, batch, rows, rows, cin, cout)
-        log(f"kernel {dtype_name} B={batch} {rows}x{rows} {cin}->{cout}{label}: "
+            getattr(torch, dtype_name), batch, rows, cols, cin, cout, gen)
+        b_ms, b_by = bound(dtype_name, batch, rows, cols, cin, cout)
+        log(f"kernel {dtype_name} B={batch} {rows}x{cols} {cin}->{cout}{label}: "
             f"max abs err {err:.3e} (max|y| {scale:.3e}); kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), {100 * b_ms / k_ms:.1f}% of bound  [{card}]")
@@ -384,6 +370,9 @@ def main() -> int:
                                                ("bfloat16", 64, 30, 256, 138)):
         err = check(dtype_name, batch, rows, cin, cout, "")[0]
         per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], err)
+    for batch, rows, cols, cin, cout in RAGGED:
+        err = check("float32", batch, rows, cin, cout, " (ragged)", cols)[0]
+        per_dtype["float32"][0] = max(per_dtype["float32"][0], err)
 
     # --- 3. network check
     for filters, dtype_name, _ in LEGS:

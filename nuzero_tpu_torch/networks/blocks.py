@@ -12,6 +12,7 @@ Only the ``"reduce"`` value head is ported so far.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -54,8 +55,24 @@ class HexConv(nn.Module):
         return hex_conv(x.to(self.dtype), self.weight.to(self.dtype))
 
 
+@contextlib.contextmanager
+def _cudnn_without_tf32():
+    """cuDNN computes f32 convolutions in TF32 unless told otherwise
+    (torch's default is ``torch.backends.cudnn.allow_tf32 = True``), which
+    keeps about three digits; the JAX package and the hex path compute in
+    full f32.  Turns TF32 off for the block and restores the caller's flag."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = prev
+
+
 class OrthoConv(nn.Module):
-    """k x k 'same' conv on NHWC activations, weight OIHW."""
+    """k x k 'same' conv on NHWC activations, weight OIHW.  In f32 on the
+    card it computes in full f32 whatever the process-wide TF32 flags say."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  dtype=torch.float32):
@@ -68,7 +85,9 @@ class OrthoConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        y = nn.functional.conv2d(x, self.weight.to(self.dtype), padding="same")
+        full_f32 = x.is_cuda and self.dtype == torch.float32
+        with _cudnn_without_tf32() if full_f32 else contextlib.nullcontext():
+            y = nn.functional.conv2d(x, self.weight.to(self.dtype), padding="same")
         return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -40,7 +40,7 @@ def _nvcc() -> str:
 
 
 def build(name: str, sources: tuple[str, ...]) -> str:
-    """Compile ``sources`` (file names under ``csrc/``) into
+    """Compile ``sources`` (file names under ``csrc/``, or absolute paths) into
     ``_build/lib<name>-<hash>.so`` unless that file exists; returns its path."""
     paths = [os.path.join(CSRC, s) for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -68,9 +68,11 @@ def build(name: str, sources: tuple[str, ...]) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def hexconv_library() -> ctypes.CDLL:
-    """The hex-conv kernel library, built on first call."""
-    lib = ctypes.CDLL(build("hexconv", ("hexconv.cu",)))
+def hexconv_library(source: str = "hexconv.cu") -> ctypes.CDLL:
+    """The hex-conv kernel library, built on first call; ``source`` is
+    ``csrc/hexconv.cu`` unless another file with the same C interface is
+    named (``tune_f32.py`` times such variants)."""
+    lib = ctypes.CDLL(build("hexconv", (source,)))
     fn = lib.hexconv_forward
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

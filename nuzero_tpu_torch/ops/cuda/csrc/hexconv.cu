@@ -14,16 +14,16 @@
 // What bounds it on an H100: at the self-play shapes (5x5 boards, B in the
 // hundreds) the wide convs are compute-bound: 256->256 and 342->256 at
 // B=768 do ~880 and ~1000 FLOP per byte of x, W and y, above the card's
-// bf16 ridge point (~295); the narrow outputs (->21, ->1) are bound by
-// moving x.  Two kernels:
+// bf16 ridge point (~295), and in f32 64->64 at B=512 does ~110 FLOP per
+// byte against the CUDA cores' ridge of 20; the narrow outputs (->21, ->1)
+// are bound by moving x.  Two kernels, each reading x once per block from
+// a halo slab in shared memory that all 7 taps share:
 //
-// * f32 (hexconv_f32_kernel) stays on the CUDA cores (FMA, 4x4 outputs per
-//   thread), so f32 results keep f32 rounding rather than TF32.  Each
-//   block gathers its (BM x BK) slice of A from x into shared memory with
-//   per-element masked loads.
+// * f32 (f32::hexconv_f32_kernel) stays on the CUDA cores (FFMA), so f32
+//   results keep f32 rounding rather than TF32 (see the note at the
+//   kernel);
 // * bf16 (hop::hexconv_bf16_wgmma_kernel) puts the product on Hopper's
-//   warpgroup tensor cores and reads x once per block, from a halo slab in
-//   shared memory shared by all 7 taps (see the note at the kernel).
+//   warpgroup tensor cores (see the note at the kernel).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,148 +35,6 @@ namespace {
 // row 1 = odd columns (nuzero_tpu/ops/hexconv.py offset tables).
 __constant__ int kDr[2][7] = {{0, -1, -1, 0, 1, 0, -1}, {0, -1, 0, 1, 1, 1, 0}};
 __constant__ int kDc[2][7] = {{0, 0, 1, 1, 0, -1, -1}, {0, 0, 1, 1, 0, -1, -1}};
-
-template <typename T>
-__device__ __forceinline__ T zero_val();
-template <>
-__device__ __forceinline__ float zero_val<float>() { return 0.0f; }
-
-// Per-pixel gather base: for pixel m, the index of x[b, h, w, 0] and its
-// (h, w); kept in shared memory so the K loop does not re-divide m.
-struct PixelTable {
-  int64_t base[64];
-  int h[64];
-  int w[64];
-};
-
-__device__ __forceinline__ void fill_pixels(PixelTable& pt, int m0, int M, int H,
-                                            int W, int Cin, int BM) {
-  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-    int m = m0 + i;
-    if (m < M) {
-      int w = m % W;
-      int h = (m / W) % H;
-      pt.base[i] = (int64_t)m * Cin;  // == ((b*H + h)*W + w)*Cin
-      pt.h[i] = h;
-      pt.w[i] = w;
-    } else {
-      pt.base[i] = -1;
-      pt.h[i] = 0;
-      pt.w[i] = 0;
-    }
-  }
-}
-
-// Column k of the tap matrix: its channel and its tap's offsets for even
-// and odd columns.  A thread keeps one column per K tile, so the division
-// by Cin happens once per tile, not once per element.
-struct TapCol {
-  bool valid;
-  int ci;
-  int dr0, dc0, dr1, dc1;
-};
-
-__device__ __forceinline__ TapCol tap_col(int k, int K, int Cin) {
-  TapCol c;
-  c.valid = k < K;
-  int t = c.valid ? k / Cin : 0;
-  c.ci = k - t * Cin;
-  c.dr0 = kDr[0][t];
-  c.dc0 = kDc[0][t];
-  c.dr1 = kDr[1][t];
-  c.dc1 = kDc[1][t];
-  return c;
-}
-
-// Value of A[m0 + i, k] for the column decoded in `c` (zero off the board
-// or past the ragged edges).
-template <typename T>
-__device__ __forceinline__ T gather_a(const T* __restrict__ x, const PixelTable& pt, int i,
-                                      const TapCol& c, int H, int W, int Cin) {
-  int64_t base = pt.base[i];
-  if (base < 0 || !c.valid) return zero_val<T>();
-  int w = pt.w[i];
-  bool odd = w & 1;
-  int dr = odd ? c.dr1 : c.dr0;
-  int dc = odd ? c.dc1 : c.dc0;
-  int hh = pt.h[i] + dr;
-  int ww = w + dc;
-  if (hh < 0 || hh >= H || ww < 0 || ww >= W) return zero_val<T>();
-  return x[base + (int64_t)(dr * W + dc) * Cin + c.ci];
-}
-
-// ---------------------------------------------------------------------
-// f32: 64x64 output tile, 256 threads, 4x4 outputs per thread, BK = 16.
-// ---------------------------------------------------------------------
-constexpr int SBM = 64, SBN = 64, SBK = 16;
-static_assert(256 % SBK == 0, "a thread keeps one A column per tile");
-
-__global__ void __launch_bounds__(256)
-hexconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                   float* __restrict__ y, int M, int N, int K, int H, int W, int Cin) {
-  __shared__ float As[SBK][SBM + 4];
-  __shared__ float Bs[SBK][SBN + 4];
-  __shared__ PixelTable pt;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
-  fill_pixels(pt, m0, M, H, W, Cin, SBM);
-  __syncthreads();
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-    // A tile: consecutive threads take consecutive k (contiguous
-    // channels); each thread keeps column tid % SBK for the whole tile.
-    {
-      const int kk = tid % SBK;
-      const TapCol col = tap_col(k0 + kk, K, Cin);
-#pragma unroll
-      for (int r = 0; r < (SBM * SBK) / 256; ++r) {
-        int i = (tid + r * 256) / SBK;
-        As[kk][i] = gather_a(x, pt, i, col, H, W, Cin);
-      }
-    }
-    // B tile: consecutive threads take consecutive n (contiguous Cout).
-#pragma unroll
-    for (int r = 0; r < (SBK * SBN) / 256; ++r) {
-      int e = tid + r * 256;
-      int nn = e % SBN, kk = e / SBN;
-      int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? wt[(int64_t)k * N + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int n = n0 + tx * 4 + j;
-      if (n < N) y[(int64_t)m * N + n] = acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------
 // bf16: the Hopper kernel.  One block of three warpgroups computes
@@ -612,6 +470,335 @@ int launch(const Params& p, cudaStream_t s) {
 
 }  // namespace hop
 
+// ---------------------------------------------------------------------
+// f32: FFMA on the CUDA cores.  A TF32 or split-precision tensor-core
+// product would change what the f32 path computes, so the product stays
+// f32 x f32 -> f32 FMA and its roofline is the CUDA cores' 67 TFLOP/s.
+// At the 64-filter self-play shapes (B=512, 5x5) the convs with Cout >= 32
+// are bound by those FMAs (64->64: 0.37 G multiply-adds, ~110 FLOP per
+// byte of x, W and y against a ridge of 20); the narrow head convs (->21,
+// ->16, ->1) are bound by bytes, and in practice by launch and latency.
+// One block computes BM pixels x BN output channels:
+//
+//   * the halo slab: as in the bf16 kernel, the taps of pixels
+//     [m0, m0+BM) lie in the flat pixel range [m0-W-1, m0+BM+W+1); the
+//     block copies that range's chunk of KC channels into one of two slab
+//     buffers by cp.async (16 B where Cin % 4 == 0, 8 B for even Cin, 4 B
+//     otherwise), zero past Cin.  Each buffer ends in a zero row that
+//     off-board taps read.  A table of every pixel's 7 tap rows, built once
+//     per block, makes the parity shift and the zero fill an address; x is
+//     read from device memory once per block, not once per tap element;
+//   * A straight from the slab: per 4 channels a thread reads one float4
+//     of each of its TM pixels' tap rows.  Its pixels are ROWS apart, so
+//     the lanes of a warp read neighbouring slab rows (the 272-B pitch puts
+//     them in distinct banks) and the lanes of one row share a broadcast.
+//     (Copying each tap's A values into a k-major tile first, so that a
+//     thread reads float4s of 4 pixels, was 1.6x slower per evaluation.)
+//   * B through a ring: the [KC, BN] slice of W[t] for (chunk, tap) goes by
+//     cp.async into a ring of NSTAGE stages, AHEAD ahead; the copies of
+//     stage s + AHEAD are issued before stage s's FMAs;
+//   * the register tile: TM pixels x 4 channels per thread, TM + 4 float4
+//     shared loads per 16 TM FFMA;
+//   * K split inside the block: KSPLIT groups of threads take interleaved
+//     4-channel groups of every stage and add their partial tiles in the
+//     epilogue, through shared memory, before coalesced stores; so a block
+//     keeps ~256 threads however narrow its BN;
+//   * BN is Cout rounded up to 4, 8, 16, 24, 32, 48 or 64 (wider Cout in
+//     tiles of 48 or 64), so a narrow conv does no FMAs on padding;
+//   * BM = 49 (7 x 7) puts the 12,800 pixels of the 64-filter leg in 262
+//     tiles, two per SM on 132 SMs; 64-pixel tiles (200) left 64 SMs with
+//     one tile and 68 with two.
+//
+// What bounds it now: feeding the FFMAs.  At 64->64, B=512 the kernel runs
+// at ~25 TFLOP/s, and cuBLAS's f32 GEMM of the same [M, 7 Cin] x [7 Cin, 64]
+// product, with A already gathered, at ~29 (tune_f32.py's gemm column).
+// Neither loads issued a group ahead, nor fewer shared loads, nor dropping
+// the barrier, nor FFMA orders with fewer register-bank conflicts moved it
+// by more than a few percent.
+// ---------------------------------------------------------------------
+namespace f32 {
+
+constexpr int BM = 49;              // pixels per block
+constexpr int TM = 7;               // pixels per thread
+constexpr int TN = 4;               // output channels per thread: one float4 of B
+constexpr int ROWS = BM / TM;       // thread rows of one K group
+constexpr int KC = 64;              // channels per slab chunk and B stage
+constexpr int KG = KC / 4;          // 4-channel groups per chunk
+constexpr int NSTAGE = 4;           // B ring stages
+constexpr int AHEAD = NSTAGE - 1;   // stages loaded ahead of the one computed
+constexpr int SP = KC + 4;          // slab pitch in floats
+constexpr int TARGET_THREADS = 256;  // per block, reached by the K split
+static_assert(BM % TM == 0 && KC % 4 == 0, "whole thread rows and channel groups");
+static_assert(AHEAD <= 7, "a chunk's slab is loaded with its first tap's B tile");
+
+constexpr int pow2_floor(int v) { return v >= 2 ? 2 * pow2_floor(v / 2) : 1; }
+
+template <int BN>
+struct Cfg {
+  static constexpr int COLS = BN / TN;
+  static constexpr int GROUP = ROWS * COLS;  // threads of one K group
+  static constexpr int KSPLIT = pow2_floor(
+      TARGET_THREADS / GROUP < 1 ? 1 : TARGET_THREADS / GROUP > KG ? KG : TARGET_THREADS / GROUP);
+  static constexpr int THREADS = GROUP * KSPLIT;
+  // Registers for at least 512 threads per SM (two blocks of 224 at BN=64).
+  static constexpr int MIN_BLOCKS = 512 / THREADS > 0 ? 512 / THREADS : 1;
+  static constexpr int STAGE = KC * BN;  // floats per ring stage
+  static_assert(BN % TN == 0 && KG % KSPLIT == 0, "tile shape");
+  // Ring, two slab buffers of slab_rows + 1 rows (the last one zero) and
+  // the tap table; the epilogue's KSPLIT partial tiles reuse the space.
+  static int smem_bytes(int slab_rows) {
+    const int main = (NSTAGE * STAGE + 2 * (slab_rows + 1) * SP + 7 * BM) * 4;
+    const int epilogue = KSPLIT * BM * BN * 4;
+    return main > epilogue ? main : epilogue;
+  }
+};
+
+struct Params {
+  const float* x;
+  const float* wt;
+  float* y;
+  int M, N, H, W, Cin;
+  int va, vb, vy;  // bytes per copy of x rows, W rows and y rows: 16, 8 or 4
+  int slab_rows;   // BM + 2W + 2
+};
+
+// Copy SIZE bytes (4, 8 or 16) global -> shared; bytes past `valid` are zeroed.
+template <int SIZE>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int valid) {
+  if constexpr (SIZE == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(SIZE), "r"(valid));
+}
+
+// One chunk of the halo slab: flat pixels [p0, p0 + slab_rows), channels
+// [c0, c0 + kc4) of x (kc4: the chunk's channels rounded up to 4), zero
+// past Cin.  Rows off [0, M) are left unwritten: only off-board taps point
+// there, and those read the zero row.
+template <int THREADS, int SIZE>
+__device__ __forceinline__ void load_slab(const Params& p, float* dst0, int c0, int p0) {
+  constexpr int UPR = KC * 4 / SIZE;  // copies per row
+  constexpr int F = SIZE / 4;         // floats per copy
+  const int kc = min(KC, p.Cin - c0), kc4 = (kc + 3) & ~3;
+  for (int u = threadIdx.x; u < p.slab_rows * UPR; u += THREADS) {
+    const int r = u / UPR, ch = (u % UPR) * F, q = p0 + r;
+    if (ch >= kc4 || q < 0 || q >= p.M) continue;
+    const float* src = p.x + (int64_t)q * p.Cin + c0 + ch;
+    const int valid = ch < kc ? min(SIZE, (kc - ch) * 4) : 0;
+    cp_async<SIZE>(hop::smem_u32(dst0 + r * SP + ch), valid ? src : p.x, valid);
+  }
+}
+
+// The B tile of (tap t, chunk c0): W[t][c0 .. c0+kc4)[n0 .. n0+BN), row
+// major with pitch BN, zero past Cin and past Cout.  Where the block's
+// threads cover whole rows, each thread copies one fixed column of every
+// STEP-th row, so a copy costs an add and a compare.
+template <int BN, int THREADS, int SIZE>
+__device__ __forceinline__ void load_b(const Params& p, float* dst0, int t, int c0, int n0) {
+  constexpr int UPR = BN * 4 / SIZE;  // copies per row
+  constexpr int F = SIZE / 4;         // floats per copy
+  const int kc4 = (min(KC, p.Cin - c0) + 3) & ~3;
+  const float* src0 = p.wt + ((int64_t)t * p.Cin + c0) * p.N + n0;
+  if constexpr (THREADS % UPR == 0 && KC % (THREADS / UPR) == 0) {
+    constexpr int STEP = THREADS / UPR;
+    const int k0 = threadIdx.x / UPR, n = (threadIdx.x % UPR) * F;
+    const int vcol = n0 + n < p.N ? min(SIZE, (p.N - n0 - n) * 4) : 0;
+#pragma unroll
+    for (int i = 0; i < KC / STEP; ++i) {
+      const int k = k0 + i * STEP;
+      if (k >= kc4) break;
+      const int valid = c0 + k < p.Cin ? vcol : 0;
+      cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
+    }
+  } else {
+    for (int u = threadIdx.x; u < kc4 * UPR; u += THREADS) {
+      const int k = u / UPR, n = (u % UPR) * F, col = n0 + n;
+      const int valid = c0 + k < p.Cin && col < p.N ? min(SIZE, (p.N - col) * 4) : 0;
+      cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(Cfg<BN>::THREADS, Cfg<BN>::MIN_BLOCKS)
+hexconv_f32_kernel(const Params p) {
+  using C = Cfg<BN>;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* slab = ring + NSTAGE * C::STAGE;
+  const int buf = (p.slab_rows + 1) * SP;  // floats per slab buffer
+  int* tbl = reinterpret_cast<int*>(slab + 2 * buf);
+  const int tid = threadIdx.x, g = tid / C::GROUP, tx = tid % C::COLS,
+            ty = (tid % C::GROUP) / C::COLS;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int W = p.W, Cin = p.Cin;
+  const int chunks = (Cin + KC - 1) / KC, stages = 7 * chunks;
+  const int p0 = m0 - W - 1;  // flat pixel of slab row 0
+  const int zero = p.slab_rows * SP;
+
+  for (int u = tid; u < SP; u += C::THREADS) {
+    slab[zero + u] = 0.0f;
+    slab[buf + zero + u] = 0.0f;
+  }
+  // tbl[t * BM + i]: the slab offset of pixel i's tap t, or the zero row.
+  for (int i = tid; i < BM; i += C::THREADS) {
+    const int m = m0 + i, w = m % W, h = (m / W) % p.H, odd = w & 1;
+#pragma unroll
+    for (int t = 0; t < 7; ++t) {
+      const int dr = kDr[odd][t], dc = kDc[odd][t], hh = h + dr, ww = w + dc;
+      const bool on = m < p.M && hh >= 0 && hh < p.H && ww >= 0 && ww < W;
+      tbl[t * BM + i] = on ? (i + W + 1 + dr * W + dc) * SP : zero;
+    }
+  }
+
+  // Stage s is one (chunk, tap) pair, tap minor: slab buffer (s / 7) & 1,
+  // ring slot s % NSTAGE.  Each block starts the cycle of chunks and of
+  // taps at its own offset, so that the blocks of a wave do not all ask
+  // L2 for the same B tile at once.
+  const int spread = blockIdx.x + blockIdx.y;
+  const int first_t = spread % 7, first_c = (spread / 7) % chunks;
+  auto chunk_tap = [&](int s, int& c, int& t) {
+    c = s / 7 + first_c;
+    t = s % 7 + first_t;
+    if (c >= chunks) c -= chunks;
+    if (t >= 7) t -= 7;
+  };
+  auto issue = [&](int s) {
+    int c, t;
+    chunk_tap(s, c, t);
+    if (s % 7 == 0) {
+      float* dst = slab + ((s / 7) & 1) * buf;
+      if (p.va == 16) load_slab<C::THREADS, 16>(p, dst, c * KC, p0);
+      else if (p.va == 8) load_slab<C::THREADS, 8>(p, dst, c * KC, p0);
+      else load_slab<C::THREADS, 4>(p, dst, c * KC, p0);
+    }
+    float* dst = ring + (s % NSTAGE) * C::STAGE;
+    if (p.vb == 16) load_b<BN, C::THREADS, 16>(p, dst, t, c * KC, n0);
+    else if (p.vb == 8) load_b<BN, C::THREADS, 8>(p, dst, t, c * KC, n0);
+    else load_b<BN, C::THREADS, 4>(p, dst, t, c * KC, n0);
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int j = 0; j < TM; ++j)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[j][n] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < stages) issue(s);
+    hop::cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    hop::cp_async_wait<AHEAD - 1>();  // this thread's copies of stage s have landed
+    __syncthreads();  // everyone's have, and everyone is done with stage s - 1
+    // The copies for stage s + AHEAD refill the slot of stage s - 1 and, at
+    // a chunk's first stage, the slab buffer of the chunk before this one.
+    if (s + AHEAD < stages) issue(s + AHEAD);
+    hop::cp_async_commit();
+    int c, t;
+    chunk_tap(s, c, t);
+    const int groups = (min(KC, Cin - c * KC) + 3) / 4;
+    const float* sl = slab + ((s / 7) & 1) * buf;
+    const float* bs = ring + (s % NSTAGE) * C::STAGE + tx * TN;
+    int off[TM];
+#pragma unroll
+    for (int j = 0; j < TM; ++j) off[j] = tbl[t * BM + ty + j * ROWS];
+#pragma unroll
+    for (int q = 0; q < KG / C::KSPLIT; ++q) {
+      const int kg = q * C::KSPLIT + g;
+      if (kg < groups) {
+        float4 a[TM], b[4];
+#pragma unroll
+        for (int j = 0; j < TM; ++j) a[j] = *reinterpret_cast<const float4*>(sl + off[j] + 4 * kg);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          b[k] = *reinterpret_cast<const float4*>(bs + (4 * kg + k) * BN);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int j = 0; j < TM; ++j) {
+            const float ak = k == 0 ? a[j].x : k == 1 ? a[j].y : k == 2 ? a[j].z : a[j].w;
+            acc[j][0] = fmaf(ak, b[k].x, acc[j][0]);
+            acc[j][1] = fmaf(ak, b[k].y, acc[j][1]);
+            acc[j][2] = fmaf(ak, b[k].z, acc[j][2]);
+            acc[j][3] = fmaf(ak, b[k].w, acc[j][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // Epilogue: the KSPLIT partial tiles through the (now idle) ring and
+  // slab, summed in a fixed order, then coalesced stores.
+  __syncthreads();
+  float* part = smem;
+#pragma unroll
+  for (int j = 0; j < TM; ++j)
+    *reinterpret_cast<float4*>(part + (g * BM + ty + j * ROWS) * BN + tx * TN) =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  __syncthreads();
+  const int rows = min(BM, p.M - m0), cols = min(BN, p.N - n0);
+  float* y = p.y + (int64_t)m0 * p.N + n0;
+  if (p.vy == 16) {
+    const int upr = cols / 4;
+    for (int u = tid; u < rows * upr; u += C::THREADS) {
+      const int r = u / upr, j = (u - r * upr) * 4;
+      float4 v = *reinterpret_cast<const float4*>(part + r * BN + j);
+#pragma unroll
+      for (int k = 1; k < C::KSPLIT; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(part + (k * BM + r) * BN + j);
+        v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+      }
+      *reinterpret_cast<float4*>(y + (int64_t)r * p.N + j) = v;
+    }
+  } else {
+    for (int u = tid; u < rows * cols; u += C::THREADS) {
+      const int r = u / cols, j = u - r * cols;
+      float v = part[r * BN + j];
+#pragma unroll
+      for (int k = 1; k < C::KSPLIT; ++k) v += part[(k * BM + r) * BN + j];
+      y[(int64_t)r * p.N + j] = v;
+    }
+  }
+}
+
+template <int BN>
+int launch_bn(Params p, cudaStream_t s) {
+  constexpr int kMaxSmem = 232448;  // per block on sm_90
+  p.slab_rows = BM + 2 * p.W + 2;
+  const int smem = Cfg<BN>::smem_bytes(p.slab_rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);  // W over ~126
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(hexconv_f32_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  hexconv_f32_kernel<BN><<<grid, Cfg<BN>::THREADS, smem, s>>>(p);
+  return 0;
+}
+
+// BN: Cout rounded up to a width below; wider Cout in tiles of 48 (up to
+// 96) or 64.
+int launch(const Params& p, cudaStream_t s) {
+  if (p.N <= 4) return launch_bn<4>(p, s);
+  if (p.N <= 8) return launch_bn<8>(p, s);
+  if (p.N <= 16) return launch_bn<16>(p, s);
+  if (p.N <= 24) return launch_bn<24>(p, s);
+  if (p.N <= 32) return launch_bn<32>(p, s);
+  if (p.N <= 48) return launch_bn<48>(p, s);
+  if (p.N <= 64) return launch_bn<64>(p, s);
+  if (p.N <= 96) return launch_bn<48>(p, s);
+  return launch_bn<64>(p, s);
+}
+
+}  // namespace f32
+
 bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
@@ -623,6 +810,13 @@ int copy_width(const void* p, int channels) {
   return 2;
 }
 
+// Bytes per copy of rows of `channels` f32 values starting at `p`.
+int copy_width_f32(const void* p, int channels) {
+  if (channels % 4 == 0 && aligned(p, 16)) return 16;
+  if (channels % 2 == 0 && aligned(p, 8)) return 8;
+  return 4;
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  dtype: 0 = f32, 1 = bf16.
@@ -632,15 +826,20 @@ int copy_width(const void* p, int channels) {
 extern "C" int hexconv_forward(const void* x, const void* wt, void* y, int B, int H, int W,
                                int Cin, int Cout, int dtype, void* stream) {
   const int M = B * H * W;
-  const int K = 7 * Cin;
   const int N = Cout;
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
-    hexconv_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                             static_cast<const float*>(wt),
-                                             static_cast<float*>(y), M, N, K, H, W, Cin);
+    f32::Params p;
+    p.x = static_cast<const float*>(x);
+    p.wt = static_cast<const float*>(wt);
+    p.y = static_cast<float*>(y);
+    p.M = M, p.N = N, p.H = H, p.W = W, p.Cin = Cin;
+    p.va = copy_width_f32(x, Cin);
+    p.vb = copy_width_f32(wt, Cout);
+    p.vy = copy_width_f32(y, Cout);
+    const int err = f32::launch(p, s);
+    if (err != 0) return err;
   } else if (dtype == 1) {
     hop::Params p;
     p.x = static_cast<const __nv_bfloat16*>(x);

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from nuzero_tpu_torch.networks.blocks import OrthoConv
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+from nuzero_tpu_torch.ops.cuda.measure import RAGGED, conv_shapes
 
 # (Cin, Cout) of the 17 convs of one 256-filter RecurrentNet evaluation.
 LEG_256F = [(86, 256), (342, 256), (256, 256), (256, 138), (138, 21),
@@ -47,3 +49,69 @@ def test_bf16_kernel_matches_plain_on_card(cuda_card, cin, cout):
     assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.bfloat16]] == 1
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+# (B, H, W, Cin, Cout) of the f32 kernel's cases: the 64-filter leg's
+# shapes at B=8 on 5x5, the ragged cases, and 10x10 and 30x30 boards.
+F32_CASES = ([(8, 5, 5, cin, cout) for cin, cout, _ in conv_shapes(64)]
+             + list(RAGGED) + [(4, 10, 10, 64, 64), (2, 30, 30, 64, 48)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,cin,cout", F32_CASES)
+def test_f32_kernel_matches_plain_on_card(cuda_card, b, h, w, cin, cout):
+    """The f32 kernel against the plain version within 1e-5 of max|y|: both
+    sum f32 products in f32 (FFMA, no TF32), in another order."""
+    x, wt = _inputs(b, h, w, cin, cout, seed=5)
+    xc, wc = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+    hexconv_kernel.reset_launch_count()
+    got = hexconv_kernel.hex_conv_cuda(xc, wc)
+    want = hexconv.hex_conv_plain(xc, wc)
+    assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.float32]] == 1
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_f32_ortho_conv_is_full_f32_on_card(cuda_card):
+    """An f32 OrthoConv on the card matches the same weights on the CPU
+    within 1e-5 of scale under torch's default flags, which let cuDNN run
+    f32 convolutions in TF32 (about three digits); the caller's flag is
+    left as it was."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((16, 5, 5, 64)).astype(np.float32))
+    conv = OrthoConv(64, 64)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    try:
+        with torch.no_grad():
+            want = conv(x)
+            got = conv.cuda()(x.cuda()).cpu()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_f32_kernel_at_the_widest_board_that_fits(cuda_card):
+    """At 64->64 the f32 kernel's halo slab (BM + 2W + 2 rows of 64
+    channels, two buffers) and its B ring fit the 227 KB of shared memory
+    up to W = 126: the widest board runs and matches the plain version."""
+    x, wt = _inputs(1, 2, 126, 64, 64, seed=9)
+    xc, wc = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+    got = hexconv_kernel.hex_conv_cuda(xc, wc)
+    want = hexconv.hex_conv_plain(xc, wc)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_f32_kernel_raises_past_the_shared_memory_cap(cuda_card):
+    """Past W = 126 at 64->64 the slab does not fit: hexconv_forward returns
+    an error, which the wrapper raises, and nothing is launched."""
+    x, wt = _inputs(1, 2, 130, 64, 64, seed=9)
+    hexconv_kernel.reset_launch_count()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hexconv_kernel.hex_conv_cuda(torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda())
+    assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.float32]] == 0

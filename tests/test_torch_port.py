@@ -98,6 +98,8 @@ def test_entry_points_default_to_the_card(entry):
     ("bfloat16", 768, 138, 21, (19200 * 138 + 7 * 138 * 21 + 19200 * 21) * 2 / 3.35e9, "bytes"),
     # f32 on the CUDA cores: 67 TFLOP/s
     ("float32", 512, 64, 64, 2 * 7 * 12800 * 64 * 64 / 67e9, "operations"),
+    # the value ramp's last f32 conv moves more bytes than it does FLOPs
+    ("float32", 512, 16, 1, (12800 * 16 + 7 * 16 * 1 + 12800 * 1) * 4 / 3.35e9, "bytes"),
 ])
 def test_chip_smoke_bound(dtype, batch, cin, cout, ms, by):
     """The least time chip_smoke.py reports for a 5x5 hex conv: the larger
@@ -114,3 +116,62 @@ def test_chip_smoke_conv_shapes():
         (86, 256, 1), (342, 256, 2), (256, 256, 8), (256, 138, 1), (138, 21, 1),
         (256, 192, 1), (192, 128, 1), (128, 64, 1), (64, 1, 1),
     ]
+
+
+# A cuobjdump -sass excerpt in its own layout: one f32 instantiation with
+# FFMA and LDGSTS, one bf16 instantiation with HGMMA.
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_13f3218hexconv_f32_kernelILi64EEEvNS0_6ParamsE
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                        /* 0x00000a00ff017b82 */
+                                                                                 /* 0x000fe40000000800 */
+        /*0010*/              @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ;  /* 0x0000000004037fae */
+        /*0020*/                   FFMA R8, R12, R16, R8 ;                       /* 0x000000100c087223 */
+        /*0030*/                   FFMA R9, R12, R17, R9 ;                       /* 0x000000110c097223 */
+		Function : _ZN12_GLOBAL__N_13hop25hexconv_bf16_wgmma_kernelILi64EEEvNS0_6ParamsE
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;  /* 0x0000000418187df0 */
+        /*0010*/                   FFMA R2, R3, R4, R2 ;                         /* 0x0000000403027223 */
+"""
+
+
+@pytest.mark.parametrize("kernel,must,must_not,error", [
+    ("hexconv_f32_kernel", ("FFMA", "LDGSTS"), ("HMMA", "HGMMA"), None),
+    ("hexconv_bf16_wgmma_kernel", ("HGMMA",), (), None),
+    ("hexconv_f32_kernel", ("FFMA", "LDGSTS", "LDSM"), (), "lacks \\['LDSM'\\]"),
+    ("hexconv_bf16_wgmma_kernel", ("HGMMA",), ("FFMA",), "holds \\['FFMA'\\]"),
+    ("hexconv_f16_kernel", ("FFMA",), (), "not in the SASS"),
+])
+def test_chip_smoke_sass_check(kernel, must, must_not, error):
+    """chip_smoke.py's SASS check on a canned excerpt: an opcode counts
+    without its modifiers and predicate, HMMA is not HGMMA, and a missing
+    or forbidden instruction raises."""
+    if error is None:
+        counts = chip_smoke.check_sass(_SASS, kernel, must, must_not)
+        assert all(counts[op] > 0 for op in must)
+        assert all(counts[op] == 0 for op in must_not)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke.check_sass(_SASS, kernel, must, must_not)
+
+
+def test_chip_smoke_sass_counts():
+    counts = chip_smoke.sass_opcodes(_SASS, "hexconv", ("FFMA", "LDGSTS", "HGMMA"))
+    assert list(counts.values()) == [
+        {"FFMA": 2, "LDGSTS": 1, "HGMMA": 0}, {"FFMA": 1, "LDGSTS": 0, "HGMMA": 1},
+    ]
+
+
+def test_chip_smoke_checks_every_kernel():
+    """Phase 1 holds each dtype's kernel to its SASS rule, and phase 2's
+    ragged f32 cases cover odd Cin, pixel counts off the block size, odd
+    and even widths and Cout of 1 and 42."""
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import KERNELS
+
+    assert {str(d).removeprefix("torch.") for d in KERNELS} == set(chip_smoke.SASS)
+    assert chip_smoke.SASS["float32"] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
+    ragged = chip_smoke.RAGGED
+    assert any(cin % 2 for _, _, _, cin, _ in ragged)
+    assert any((b * h * w) % 64 for b, h, w, _, _ in ragged)
+    assert {w % 2 for _, _, w, _, _ in ragged} == {0, 1}
+    assert {1, 42} <= {cout for *_, cout in ragged}
