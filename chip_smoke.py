@@ -4,12 +4,14 @@
 
 Phases, each of which must pass:
 
-1. device: print the card's name and power limit; build the hex-conv
-   kernel library from ``nuzero_tpu_torch/ops/cuda/csrc`` and check each
-   kernel's machine code with ``cuobjdump -sass`` (``SASS``): the bf16
-   kernel runs on Hopper's warpgroup tensor cores (``HGMMA``); the f32
-   kernel does FFMA on the CUDA cores, fed by ``cp.async`` (``LDGSTS``),
-   and holds no tensor-core instruction (no ``HMMA``, no ``HGMMA``);
+1. device: print the card's name and power limit; build the kernel
+   libraries from ``nuzero_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per
+   source, side by side) and check each kernel's machine code with
+   ``cuobjdump -sass`` (``SASS``): the bf16 forward kernel runs on Hopper's
+   warpgroup tensor cores (``HGMMA``); the f32 forward kernel does FFMA on
+   the CUDA cores, fed by ``cp.async`` (``LDGSTS``), and holds no
+   tensor-core instruction (no ``HMMA``, no ``HGMMA``); the dW kernels do
+   FFMA and hold no tensor-core instruction;
 2. kernel check: the CUDA hex conv against its plain PyTorch version at
    every conv shape of the two self-play legs, plus 10x10 and 30x30
    boards in both dtypes and ragged f32 shapes (``RAGGED``: odd Cin, pixel
@@ -34,6 +36,28 @@ Each leg then plays one more move under ``torch.profiler`` and prints the
 device kernels' busy time, the card's idle share of a steady move and the
 hex conv's share of the busy time.
 
+The training half:
+
+6. backward kernel check: in both dtypes, at every hex-conv shape of one
+   training update at B=256 (256f bf16, the flagship; 64f f32,
+   ``scs_small.yaml``), the dW kernel against ``hex_conv_dw_plain`` and dX
+   (the forward kernel on ``mirror_taps(W)``) against ``hex_conv_dx_plain``,
+   plus the ragged shapes ``BACKWARD_RAGGED``; each line prints kernel,
+   plain and library ms (cuDNN's ``convolution_backward`` of the dual 3x3
+   conv, ``library_backward``), the bound and the launches per update;
+7. gradient check: one learner update of each net on the card against the
+   same update on the CPU from the same weights, then the launch counts of
+   one update at B=256 with the progressive loss off (27 forward + 26 dX
+   launches of the forward kernel, 27 of the dW kernel);
+8. training run: ``AlphaZero(...).run()`` on the flagship configs
+   (``scs_contested256.yaml``, ``scs_contested256_search.yaml``) loaded by
+   the port's schemas at full network and learner width, cut as
+   ``TRAIN_CUTS`` says; it checks the update count, finite losses, changed
+   parameters, a grown buffer and a checkpoint that restores equal through
+   ``load``; then times 10 more learner updates on the filled buffer and
+   profiles one (device busy time, idle share, hex-conv forward, dX and dW
+   device time).
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -41,26 +65,50 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 from nuzero_tpu_torch.ops.cuda.measure import (
-    CONVS_PER_EVAL, RAGGED, bound, card_line, conv_shapes, time_ms,
+    BACKWARD_RAGGED, CONVS_PER_EVAL, RAGGED, TRAIN_BATCH, TRAIN_ITERS, bound, card_line,
+    conv_shapes, launches_per_update, library_backward, time_ms,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIMS = 30
 MOVES = 4
 KERNEL_SOURCE = "nuzero_tpu_torch/ops/cuda/csrc/hexconv.cu"
+DW_SOURCE = "nuzero_tpu_torch/ops/cuda/csrc/hexconv_dw.cu"
 REPLACES = "nuzero_tpu/ops/pallas/hexconv_kernel.py:91"
+# The dW kernel replaces no Pallas kernel: the JAX backward is XLA's VJP.
+DW_REPLACES = "nuzero_tpu/ops/hexconv.py:205"
 # (filters, dtype name, batch) of the two self-play legs.
 LEGS = ((256, "bfloat16", 768), (64, "float32", 512))
+# (filters, dtype name) of the two learner widths: the flagship and
+# scs_small.yaml's (the training recipe's default width).
+NETS = ((256, "bfloat16"), (64, "float32"))
 # Instructions each kernel's SASS must hold, and must not hold.
-SASS = {"bfloat16": (("HGMMA",), ()), "float32": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))}
+SASS = {
+    "hexconv_bf16_wgmma_kernel": (("HGMMA",), ()),
+    "hexconv_f32_kernel": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA")),
+    "hexconv_dw_f32_kernel": (("FFMA",), ("HMMA", "HGMMA")),
+    "hexconv_dw_bf16_kernel": (("FFMA",), ("HMMA", "HGMMA")),
+}
+TRAIN_CONFIG = "configs/training/scs_contested256.yaml"
+SEARCH_CONFIG = "configs/search/scs_contested256_search.yaml"
+# The training run's cuts of the flagship configs (the files say 300
+# steps, a checkpoint every 50, in-loop tests and plots on, 512 actors, an
+# early fill of 128 games and 100 simulations).
+TRAIN_CUTS = {"training_steps": 3, "save_frequency": 3, "num_actors": 128,
+              "early_fill_per_type": 16, "num_simulations": 30,
+              "in-loop tests": "off", "plots": "off"}
+GRAD_BATCH = 16
+TIMED_UPDATES = 10
 
 
 def log(*args):
@@ -307,6 +355,308 @@ def selfplay_leg(filters, dtype, batch):
         f"({100 * hex_ms / busy:.1f}% of busy)")
     return counts[hexconv_kernel.KERNELS[dtype]], evals, seconds
 
+def backward_check(dtype, batch, rows, cols, cin, cout, gen):
+    """The dW kernel and dX (the forward kernel on the mirrored taps) of one
+    hex conv against their plain versions -> {"dw": (err, max|dW|, kernel ms,
+    plain ms, library ms), "dx": (...)}."""
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda, hex_conv_dw_cuda
+    from nuzero_tpu_torch.ops.hexconv import hex_conv_dw_plain, hex_conv_dx_plain, mirror_taps
+
+    x = torch.randn(batch, rows, cols, cin, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(7, cin, cout, device="cuda", generator=gen) / (7 * cin) ** 0.5).to(dtype)
+    dy = torch.randn(batch, rows, cols, cout, device="cuda", generator=gen).to(dtype)
+    w_mirror = mirror_taps(w)
+    lib_dx, lib_dw, to_hex = library_backward(x, w, dy)
+    runs = {
+        "dw": (lambda: hex_conv_dw_cuda(x, dy), lambda: hex_conv_dw_plain(x, dy), lib_dw),
+        "dx": (lambda: hex_conv_cuda(dy, w_mirror), lambda: hex_conv_dx_plain(dy, w), lib_dx),
+    }
+    lib_out = dict(zip(("dx", "dw"), to_hex(lib_dx(), lib_dw())))
+    tol = (1e-4 if dtype == torch.float32 else 1e-2)
+    out = {}
+    for name, (kernel, plain, library) in runs.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        label = f"{name} {dtype} B={batch} {rows}x{cols} {cin}->{cout}"
+        if not (got.shape == ref.shape and err <= tol * scale):
+            raise AssertionError(f"{label}: max abs err {err} > {tol * scale}")
+        lib_err = (lib_out[name].float() - ref.float()).abs().max().item()
+        if lib_err > 2 * tol * scale:
+            raise AssertionError(f"{label}: library err {lib_err} > {2 * tol * scale}")
+        reps = 10
+        p1, k1, l1 = time_ms(plain, reps), time_ms(kernel, reps), time_ms(library, reps)
+        l2, k2, p2 = time_ms(library, reps), time_ms(kernel, reps), time_ms(plain, reps)
+        out[name] = (err, scale, (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2)
+    return out
+
+
+def random_batch(env, batch, gen, device):
+    """A learner batch from ``gen``: binary observation planes, policy
+    targets that are distributions with zeros, values in {-1, 0, 1}."""
+    import torch
+
+    shape = (batch,) + tuple(env.observation_shape)
+    obs = (torch.rand(shape, generator=gen) < 0.2).float()
+    pol = torch.rand(batch, env.num_actions, generator=gen)
+    pol = torch.where(torch.rand(pol.shape, generator=gen) < 0.9, 0.0, pol) + 1e-6
+    pol = pol / pol.sum(-1, keepdim=True)
+    val = torch.randint(-1, 2, (batch,), generator=gen).float()
+    gt = torch.zeros(batch, dtype=torch.int32)
+    return tuple(t.to(device) for t in (obs, pol, val, gt))
+
+
+def learner_for(mgr, alpha, draws=None):
+    from nuzero_tpu_torch.training.learner import Learner, LearnerConfig
+
+    cfg = LearnerConfig(optimizer="Adam", learning_rate=1e-3, train_iterations=TRAIN_ITERS,
+                        prog_alpha=alpha)
+    return Learner(mgr, cfg, draws=draws) if draws else Learner(mgr, cfg)
+
+
+def grad_check(filters, dtype):
+    """One learner update (Adam, 4 iterations, alpha 0.01 with the
+    progressive branch's draws fixed at n=1, k=2) on the card against the
+    same update on the CPU from the same weights.
+
+    f32: losses within 1e-5 relative, gradients within 1e-4 of each
+    tensor's largest, updated parameters within 5e-2 of lr (Adam's step of
+    a near-zero gradient is sensitive to its last digits).
+
+    bf16: both sides round every conv's output and dX to bf16 at the same
+    places, but their f32 sums in another order flip some of those
+    roundings, and the flips add up along the backward (the stem's
+    gradient, the deepest, differs by ~5% in norm).  So each side is
+    measured against bf16's own error: the same update computed in f32 on
+    the CPU.  A bf16 gradient on the card must lie within twice the CPU's
+    bf16-vs-f32 difference of the CPU's bf16 gradient (relative norms per
+    tensor), the loss within 2e-2, and the parameter steps' signs agree on
+    >= 98% of the parameters."""
+    import torch
+
+    from nuzero_tpu_torch.training.learner import TrainState
+
+    lr = 1e-3
+    env = make_env("cuda")
+    params = make_net(env, filters, dtype).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = random_batch(env, GRAD_BATCH, torch.Generator().manual_seed(0), "cpu")
+    cpu_env = make_env("cpu")
+
+    def update(mgr, dev):
+        learner = learner_for(mgr, 0.01, draws=lambda rng, iters: (1, 2))
+        p = {k: v.to(dev) for k, v in params.items()}
+        state = TrainState(params=p, opt_state=learner.init_opt_state(p), step=0)
+        c_l, _, grads = learner.value_and_grad(state.params, tuple(t.to(dev) for t in batch),
+                                               None)
+        new = learner.apply_gradients(state, grads)
+        return (float(c_l.detach()), {k: g.float().cpu() for k, g in grads.items()},
+                {k: (new.params[k] - p[k]).cpu() for k in p})
+
+    loss, grads, steps = update(make_net(env, filters, dtype), "cuda")
+    torch.cuda.synchronize()
+    loss_ref, grads_ref, steps_ref = update(make_net(cpu_env, filters, dtype), "cpu")
+    f32 = dtype == torch.float32
+    if not f32:
+        _, grads_f32, _ = update(make_net(cpu_env, filters, torch.float32), "cpu")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    if not abs(loss - loss_ref) <= (1e-5 if f32 else 2e-2) * abs(loss_ref):
+        raise AssertionError(f"{filters}f loss on the card {loss} vs CPU {loss_ref}")
+    worst_g = worst_ratio = worst_p = 0.0
+    for k in grads:
+        scale = grads_ref[k].abs().max().item()
+        err = (grads[k] - grads_ref[k]).abs().max().item()
+        worst_g = max(worst_g, err / max(scale, 1e-30))
+        worst_p = max(worst_p, (steps[k] - steps_ref[k]).abs().max().item())
+        if f32 and err > 1e-4 * scale:
+            raise AssertionError(f"{filters}f grad {k}: max err {err} vs max {scale}")
+        if not f32:
+            card_err, bf16_err = rel(grads[k], grads_ref[k]), rel(grads_ref[k], grads_f32[k])
+            worst_ratio = max(worst_ratio, card_err / max(bf16_err, 1e-30))
+            if card_err > 2 * bf16_err:
+                raise AssertionError(f"{filters}f grad {k}: card vs CPU {card_err:.3e} of its "
+                                     f"norm, over twice bf16 vs f32 {bf16_err:.3e}")
+    agree = (torch.cat([(steps[k].sign() == steps_ref[k].sign()).flatten() for k in steps])
+             .float().mean().item())
+    if (f32 and worst_p > 5e-2 * lr) or (not f32 and agree < 0.98):
+        raise AssertionError(f"{filters}f parameter steps differ by {worst_p}, signs agree "
+                             f"on {agree:.4f}")
+    log(f"gradient check {filters}f {dtype} B={GRAD_BATCH}: loss {loss:.6f} vs CPU "
+        f"{loss_ref:.6f}; worst gradient err {worst_g:.2e} of its tensor's max"
+        + ("" if f32 else f", card-vs-CPU at most {worst_ratio:.2f}x the CPU's bf16-vs-f32")
+        + f"; parameter steps within {worst_p:.2e} (lr {lr}), signs agree on {agree:.4f}")
+
+
+def update_launch_check(filters, dtype):
+    """One learner update at B=256 and 4 iterations with the progressive
+    loss off: the forward kernel launches 27 + 26 times, the dW kernel 27
+    times.  Returns the counts of this run."""
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+
+    env = make_env("cuda")
+    mgr = make_net(env, filters, dtype)
+    learner = learner_for(mgr, 0.0)
+    state = learner.init_state(torch.Generator(device="cuda").manual_seed(0))
+    batch = random_batch(env, TRAIN_BATCH, torch.Generator().manual_seed(1), "cuda")
+    torch.cuda.synchronize()
+    hexconv_kernel.reset_launch_count()
+    state, metrics = learner.train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = dict(hexconv_kernel.launch_count)
+    per = launches_per_update()
+    expected = {name: 0 for name in counts}
+    expected[hexconv_kernel.KERNELS[dtype]] = per["forward"] + per["dx"]
+    expected[hexconv_kernel.DW_KERNELS[dtype]] = per["dw"]
+    if counts != expected:
+        raise AssertionError(f"{filters}f update launches {counts}, expected {expected}")
+    if not torch.isfinite(metrics["loss/combined"]):
+        raise AssertionError(f"{filters}f update: non-finite loss")
+    log(f"launches of one {filters}f {dtype} update (B={TRAIN_BATCH}, {TRAIN_ITERS} "
+        f"iterations, alpha 0): forward kernel {per['forward']} + {per['dx']} (dX), "
+        f"dW kernel {per['dw']}")
+    return counts
+
+
+def profile_update(learner, state, batch, rng):
+    """One learner update under torch.profiler -> (seconds, device kernels,
+    device busy ms, hex-conv forward, dX and dW device ms).  dW runs before dX in the hex
+    conv's backward, so forward-kernel launches after the first dW launch
+    are dX."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.train_step(state, batch, rng)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    kernels.sort(key=lambda e: e["ts"])
+    busy, end = 0.0, float("-inf")
+    for e in kernels:
+        stop = e["ts"] + e["dur"]
+        if stop > end:
+            busy += stop - max(e["ts"], end)
+            end = stop
+    dw_start = min((e["ts"] for e in kernels if "hexconv_dw" in e["name"]), default=float("inf"))
+    ms = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    for e in kernels:
+        if "hexconv_dw" in e["name"]:
+            ms["dw"] += e["dur"] / 1e3
+        elif "hexconv" in e["name"]:
+            ms["dx" if e["ts"] > dw_start else "forward"] += e["dur"] / 1e3
+    return seconds, len(kernels), busy / 1e3, ms
+
+
+def training_run(card):
+    """The flagship training recipe through ``AlphaZero.run()``, cut by
+    ``TRAIN_CUTS``; returns the kernel launches of the run."""
+    import torch
+
+    from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.training.pipeline import AlphaZero
+
+    cuts = TRAIN_CUTS
+    cfg = load_training_config(os.path.join(REPO, TRAIN_CONFIG))
+    cfg = dataclasses.replace(
+        cfg,
+        running=dataclasses.replace(cfg.running, training_steps=cuts["training_steps"],
+                                    num_actors=cuts["num_actors"],
+                                    early_fill_per_type=cuts["early_fill_per_type"]),
+        saving=dataclasses.replace(cfg.saving, save_frequency=cuts["save_frequency"]),
+        testing=dataclasses.replace(cfg.testing, early_testing=False, policy_test_frequency=0,
+                                    mcts_test_frequency=0, goal_rush_opponent=False),
+        plotting=dataclasses.replace(cfg.plotting, plot_loss=False, plot_weights=False),
+    )
+    search = dataclasses.replace(load_search_config(os.path.join(REPO, SEARCH_CONFIG)),
+                                 num_simulations=cuts["num_simulations"])
+    log(f"training run: {TRAIN_CONFIG} + {SEARCH_CONFIG}, cut to "
+        + ", ".join(f"{k} {v}" for k, v in cuts.items()))
+    env = make_env("cuda")
+    mgr = make_net(env, 256, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as run_dir:
+        az = AlphaZero(env, mgr, cfg, search, run_dir=run_dir)
+        initial = az.learner.init_state(torch.Generator(device="cuda").manual_seed(0))
+        before = {k: v.clone() for k, v in initial.params.items()}
+        torch.cuda.synchronize()
+        hexconv_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        state = az.run(seed=0, initial_state=initial)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(hexconv_kernel.launch_count)
+        records = az.journal.load()
+        updates = cfg.running.training_steps * cfg.learning.num_samples
+        if state.step != updates or records[-1]["updates"] != updates:
+            raise AssertionError(f"{state.step} updates applied, expected {updates}")
+        if not all(torch.isfinite(torch.tensor(r["loss/combined"])) for r in records):
+            raise AssertionError("non-finite training losses")
+        if all(torch.equal(before[k], state.params[k]) for k in before):
+            raise AssertionError("the parameters did not change")
+        if not (az.buffer.games_added > 0 and int(az.buffer.num_positions) > 0):
+            raise AssertionError("the replay buffer did not grow")
+        for name in (hexconv_kernel.KERNELS[torch.bfloat16],
+                     hexconv_kernel.DW_KERNELS[torch.bfloat16]):
+            if not counts[name]:
+                raise AssertionError(f"the training run never launched {name}")
+        for r in records:
+            log(f"training step {r['step']}: {r['games']} games, buffer {r['buffer_games']} "
+                f"games / {r['buffer_positions']} positions, loss {r['loss/combined']:.4f} "
+                f"(policy {r['loss/policy']:.4f}, value {r['loss/value']:.4f}); "
+                f"self-play {r['time/selfplay']:.2f} s, train {r['time/train']:.3f} s  [{card}]")
+        log(f"training run: {seconds:.1f} s for {cfg.running.training_steps} steps, "
+            f"{state.step} updates, {az.buffer.games_added} games; kernel launches {counts}")
+
+        # The checkpoint of the last step restores equal through load().
+        resumed = AlphaZero(env, mgr, cfg, search, run_dir=run_dir)
+        restored, step = resumed.load("auto")
+        if step != cfg.running.training_steps or restored.step != state.step:
+            raise AssertionError(f"restored step {step} / {restored.step}")
+        for k in state.params:
+            if not (torch.equal(restored.params[k], state.params[k])
+                    and torch.equal(restored.opt_state["mu"][k], state.opt_state["mu"][k])):
+                raise AssertionError(f"restored {k} differs")
+        if not torch.equal(resumed.buffer.states, az.buffer.states):
+            raise AssertionError("restored buffer differs")
+        log(f"checkpoint of step {step} restored equal (params, Adam moments, buffer)")
+
+        # More learner updates on the filled buffer, timed, then one profiled.
+        lcfg = cfg.learning
+        times = []
+        for _ in range(TIMED_UPDATES):
+            batch = az._sample_obs(az._rng, lcfg.batch_size, late_heavy=lcfg.late_heavy,
+                                   with_replacement=lcfg.with_replacement)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = az.learner.train_step(state, batch, az._host_rng)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        batch = az._sample_obs(az._rng, lcfg.batch_size, late_heavy=lcfg.late_heavy,
+                               with_replacement=lcfg.with_replacement)
+        secs, n_kernels, busy, ms = profile_update(az.learner, state, batch, az._host_rng)
+        med = statistics.median(times)
+        log(f"learner update 256f bf16 B={lcfg.batch_size}: median {med:.2f} ms of "
+            f"{TIMED_UPDATES} (min {min(times):.2f}, max {max(times):.2f})  [{card}]")
+        log(f"profile of one update: {secs * 1e3:.2f} ms under the profiler, {n_kernels} "
+            f"device kernels, busy "
+            f"{busy:.2f} ms (idle {100 * (1 - busy / (med)):.1f}% of a {med:.2f} ms update); "
+            f"hex conv forward {ms['forward']:.2f} ms, dX {ms['dx']:.2f} ms, dW {ms['dw']:.2f} ms "
+            f"({100 * sum(ms.values()) / busy:.1f}% of busy)  [{card}]")
+    return counts
+
+
 
 def main() -> int:
     import torch
@@ -314,8 +664,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from nuzero_tpu_torch.ops.cuda.build import hexconv_library
-    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import KERNELS
+    from nuzero_tpu_torch.ops.cuda.build import build_all
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import DW_KERNELS, KERNELS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -325,11 +675,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    library = hexconv_library()
-    log(f"built hex-conv kernel library in {time.perf_counter() - t0:.1f} s")
-    sass = dump_sass(library._name)
-    for dtype_name, (must, must_not) in SASS.items():
-        kernel = KERNELS[getattr(torch, dtype_name)]
+    libraries = build_all()
+    log(f"built the kernel libraries {sorted(libraries)} in {time.perf_counter() - t0:.1f} s")
+    sass = "".join(dump_sass(lib._name) for lib in libraries.values())
+    for kernel, (must, must_not) in SASS.items():
         counts = check_sass(sass, kernel, must, must_not)
         log(f"{kernel} SASS: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
 
@@ -374,9 +723,57 @@ def main() -> int:
         err = check("float32", batch, rows, cin, cout, " (ragged)", cols)[0]
         per_dtype["float32"][0] = max(per_dtype["float32"][0], err)
 
+    # --- 6. backward kernel check, at the shapes of one training update
+    dw_sums = {}
+    per = launches_per_update()
+    for filters, dtype_name in NETS:
+        dtype = getattr(torch, dtype_name)
+        sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        dx_sums = dict(sums)
+        by = {"operations": 0.0, "bytes": 0.0}
+        worst = 0.0
+        for i, (cin, cout, count) in enumerate(conv_shapes(filters, iterations=TRAIN_ITERS)):
+            res = backward_check(dtype, TRAIN_BATCH, 5, 5, cin, cout, gen)
+            b_ms, b_by = bound(dtype_name, TRAIN_BATCH, 5, 5, cin, cout)
+            for name, n in (("dw", count), ("dx", 0 if i == 0 else count)):
+                err, scale, k_ms, p_ms, l_ms = res[name]
+                log(f"{name} {dtype_name} B={TRAIN_BATCH} 5x5 {cin}->{cout} (x{n} per update): "
+                    f"max abs err {err:.3e} (max {scale:.3e}); kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{100 * b_ms / k_ms:.1f}% of bound  [{card}]")
+                total = sums if name == "dw" else dx_sums
+                for key, ms in zip(total, (k_ms, p_ms, l_ms, b_ms)):
+                    total[key] += n * ms
+            by[b_by] += count * b_ms
+            worst = max(worst, res["dw"][0])
+            per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], res["dx"][0])
+        sums["bound_by"] = max(by, key=by.get)
+        dw_sums[dtype_name] = [worst, sums]
+        for name, total in (("dW", sums), ("dX", dx_sums)):
+            log(f"{name} {dtype_name} per {filters}f update ({per['dw' if name == 'dW' else 'dx']}"
+                f" launches): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+                f"library {total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms  [{card}]")
+    for dtype_name in ("float32", "bfloat16"):
+        for batch, rows, cols, cin, cout in BACKWARD_RAGGED:
+            res = backward_check(getattr(torch, dtype_name), batch, rows, cols, cin, cout, gen)
+            b_ms, b_by = bound(dtype_name, batch, rows, cols, cin, cout)
+            for name in ("dw", "dx"):
+                err, scale, k_ms, p_ms, l_ms = res[name]
+                log(f"{name} {dtype_name} B={batch} {rows}x{cols} {cin}->{cout} (ragged): max "
+                    f"abs err {err:.3e} (max {scale:.3e}); kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            dw_sums[dtype_name][0] = max(dw_sums[dtype_name][0], res["dw"][0])
+            per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], res["dx"][0])
+
     # --- 3. network check
     for filters, dtype_name, _ in LEGS:
         network_check(filters, getattr(torch, dtype_name))
+
+    # --- 7. gradient check and the launches of one update
+    update_counts = {}
+    for filters, dtype_name in NETS:
+        grad_check(filters, getattr(torch, dtype_name))
+        update_counts[dtype_name] = update_launch_check(filters, getattr(torch, dtype_name))
 
     # --- 4./5. self-play legs
     kernels = []
@@ -394,6 +791,24 @@ def main() -> int:
             "source": KERNEL_SOURCE,
             "replaces": REPLACES,
             "launches": launches,
+            "max_abs_err": worst,
+            **sums,
+        })
+
+    # --- 8. training run
+    train_counts = training_run(card)
+    # The dW kernels' launches: the bf16 kernel's from the training run, the
+    # f32 kernel's from the 64f learner update (the recipe's default width).
+    dw_launches = {"bfloat16": train_counts[DW_KERNELS[torch.bfloat16]],
+                   "float32": update_counts["float32"][DW_KERNELS[torch.float32]]}
+    for dtype_name in ("bfloat16", "float32"):
+        worst, sums = dw_sums[dtype_name]
+        kernels.append({
+            "name": DW_KERNELS[getattr(torch, dtype_name)],
+            "route": "cuda",
+            "source": DW_SOURCE,
+            "replaces": DW_REPLACES,
+            "launches": dw_launches[dtype_name],
             "max_abs_err": worst,
             **sums,
         })

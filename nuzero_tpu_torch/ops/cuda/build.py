@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -81,3 +82,27 @@ def hexconv_library(source: str = "hexconv.cu") -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def hexconv_dw_library() -> ctypes.CDLL:
+    """The hex conv's weight-gradient kernels (``csrc/hexconv_dw.cu``),
+    built on first call."""
+    lib = ctypes.CDLL(build("hexconv_dw", ("hexconv_dw.cu",)))
+    fn = lib.hexconv_dw
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all() -> dict:
+    """Build every kernel library at once, one ``nvcc`` per source running
+    side by side; returns {library name: CDLL}."""
+    loaders = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(load) for name, load in loaders.items()}
+        return {name: f.result() for name, f in futures.items()}

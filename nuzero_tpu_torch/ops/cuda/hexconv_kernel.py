@@ -1,24 +1,36 @@
-"""Python wrapper of the CUDA hex-conv kernel (``csrc/hexconv.cu``).
+"""Python wrappers of the CUDA hex-conv kernels: the forward
+(``csrc/hexconv.cu``) and the weight gradient (``csrc/hexconv_dw.cu``).
 
-Counterpart of ``nuzero_tpu/ops/pallas/hexconv_kernel.py:hex_conv_pallas``.
-The wrapper validates its inputs, allocates the output, launches on the
+The forward is the counterpart of
+``nuzero_tpu/ops/pallas/hexconv_kernel.py:hex_conv_pallas``; the weight
+gradient of the XLA VJP in ``nuzero_tpu/ops/hexconv.py:_hex_conv_pallas_bwd``
+(the input gradient is the forward on mirrored taps).  Each wrapper
+validates its inputs, allocates the output and scratch, launches on the
 current stream and counts its launches; it never falls back to another
-implementation.  The plain PyTorch version of the same function is
-``nuzero_tpu_torch.ops.hexconv.hex_conv_plain``.
+implementation.  The plain PyTorch versions are ``hex_conv_plain`` and
+``hex_conv_dw_plain`` in ``nuzero_tpu_torch.ops.hexconv``.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
-from nuzero_tpu_torch.ops.cuda.build import hexconv_library
+from nuzero_tpu_torch.ops.cuda.build import hexconv_dw_library, hexconv_library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: The device kernel (``csrc/hexconv.cu``) each dtype launches.
+#: The forward kernel (``csrc/hexconv.cu``) each dtype launches.
 KERNELS = {torch.float32: "hexconv_f32_kernel", torch.bfloat16: "hexconv_bf16_wgmma_kernel"}
+#: The weight-gradient kernel (``csrc/hexconv_dw.cu``) each dtype launches;
+#: each launch is followed by the reduce kernel that adds its slices.
+DW_KERNELS = {torch.float32: "hexconv_dw_f32_kernel", torch.bfloat16: "hexconv_dw_bf16_kernel"}
+#: The dW kernel's tile (rows of dW x output channels) and pixel chunk.
+DW_TILE, DW_CHUNK = 64, 16
 
 #: Launches per device kernel since the last ``reset_launch_count()``.
-launch_count = {name: 0 for name in KERNELS.values()}
+launch_count = {name: 0 for name in (*KERNELS.values(), *DW_KERNELS.values())}
 
 
 def reset_launch_count() -> None:
@@ -26,20 +38,24 @@ def reset_launch_count() -> None:
         launch_count[name] = 0
 
 
+def _check_operands(name, a, b):
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(
+            f"{name} needs both operands on one CUDA device, got {a.device} and {b.device}"
+        )
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(
+            f"{name} takes f32 or bf16 operands of one dtype, got {a.dtype} and {b.dtype}"
+        )
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
 def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Hex conv of NHWC ``x`` [B, H, W, Cin] with ``weights`` [7, Cin, Cout]
     (tap order [c, n, ne, se, s, sw, nw]) on the card.  f32 or bf16, both
     operands of one dtype; accumulates in f32 and returns x's dtype."""
-    if x.device.type != "cuda" or weights.device != x.device:
-        raise ValueError(
-            f"hex_conv_cuda needs both operands on one CUDA device, got "
-            f"{x.device} and {weights.device}"
-        )
-    if x.dtype not in _DTYPES or weights.dtype != x.dtype:
-        raise TypeError(
-            f"hex_conv_cuda takes f32 or bf16 operands of one dtype, got "
-            f"{x.dtype} and {weights.dtype}"
-        )
+    _check_operands("hex_conv_cuda", x, weights)
     if x.dim() != 4 or weights.dim() != 3 or weights.shape[0] != 7:
         raise ValueError(
             f"expected x [B, H, W, Cin] and weights [7, Cin, Cout], got "
@@ -48,8 +64,6 @@ def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     B, H, W, Cin = x.shape
     if weights.shape[1] != Cin:
         raise ValueError(f"weights Cin {weights.shape[1]} != x Cin {Cin}")
-    if not (x.is_contiguous() and weights.is_contiguous()):
-        raise ValueError("hex_conv_cuda needs contiguous operands")
     Cout = weights.shape[2]
     if B * H * W >= 2**31 or 7 * Cin * max(Cout, 1) >= 2**31:
         raise ValueError("hex_conv_cuda shapes exceed 32-bit indexing")
@@ -65,3 +79,49 @@ def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"hexconv_forward launch failed: CUDA error {err}")
     launch_count[KERNELS[x.dtype]] += 1
     return y
+
+
+def dw_slices(m: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
+    """(slices, pixels per slice) of the dW kernel's grid for M = ``m``
+    pixels: enough slices that the tiles of dW make about eight blocks per
+    SM, each slice at least 8 chunks long, every slice non-empty."""
+    tiles = math.ceil(7 * cin / DW_TILE) * math.ceil(cout / DW_TILE)
+    chunks = math.ceil(m / DW_CHUNK)
+    want = max(1, min(math.ceil(8 * sms / tiles), chunks // 8))
+    per_slice = math.ceil(chunks / want) * DW_CHUNK
+    return math.ceil(m / per_slice), per_slice
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the hex conv on the card: ``dW [7, Cin, Cout]``
+    of NHWC ``x`` [B, H, W, Cin] and the output gradient ``dy``
+    [B, H, W, Cout], f32 or bf16 of one dtype; f32 sums in a fixed order
+    (the same bits on every run), rounded once to the operands' dtype."""
+    _check_operands("hex_conv_dw_cuda", x, dy)
+    if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
+        raise ValueError(
+            f"expected x [B, H, W, Cin] and dy [B, H, W, Cout], got "
+            f"{tuple(x.shape)} and {tuple(dy.shape)}"
+        )
+    B, H, W, Cin = x.shape
+    Cout = dy.shape[3]
+    M = B * H * W
+    if M * max(Cin, Cout) >= 2**31 or 7 * Cin * max(Cout, 1) >= 2**31:
+        raise ValueError("hex_conv_dw_cuda shapes exceed 32-bit indexing")
+    slices, per_slice = dw_slices(M, Cin, Cout, _sm_count(x.device.index))
+    part = torch.empty((slices, 7 * Cin, Cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((7, Cin, Cout), dtype=x.dtype, device=x.device)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    err = hexconv_dw_library().hexconv_dw(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+        B, H, W, Cin, Cout, _DTYPES[x.dtype], slices, per_slice, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"hexconv_dw launch failed: CUDA error {err}")
+    launch_count[DW_KERNELS[x.dtype]] += 1
+    return dw

@@ -12,8 +12,16 @@ A hex conv has one weight matrix per tap, taps ordered
 [center, n, ne, se, s, sw, nw], zero padding at the board edge and no bias.
 Activations are NHWC and weights ``[7, Cin, Cout]``, as in the JAX package.
 
-``hex_conv`` sends a CPU tensor to the plain PyTorch version below and a
-CUDA tensor to the hand-written kernel (``ops/cuda``).
+``hex_conv`` applies ``HexConvFunction``: a CPU tensor goes to the plain
+PyTorch versions below, a CUDA tensor to the hand-written kernels
+(``ops/cuda``), forward and backward alike.  The backward is the JAX
+package's VJP of the same function (``nuzero_tpu/ops/hexconv.py:188-211``):
+
+* dX is a hex conv of dY with the mirrored taps (``mirror_taps``): the hex
+  neighbour relation is symmetric, q = nbr_t(p) exactly when
+  p = nbr_opp(t)(q) with opp swapping n/s, ne/sw and se/nw, so
+  dX[q] = sum_s dY[nbr_s(q)] W[opp(s)]^T, off-board taps reading zero;
+* dW[t] = A_t^T dY with A_t[m] = x[nbr_t(m)], a reduction over all pixels.
 """
 
 from __future__ import annotations
@@ -23,10 +31,12 @@ import functools
 import numpy as np
 import torch
 
-from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda
+from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda, hex_conv_dw_cuda
 
 #: tap -> (row_offset, col_offset) per column parity
 HEX_DIRECTIONS = ("c", "n", "ne", "se", "s", "sw", "nw")
+#: The opposite of each tap, in tap order: c<->c, n<->s, ne<->sw, se<->nw.
+OPPOSITE_TAP = (0, 4, 5, 6, 1, 2, 3)
 
 _OFFSETS_EVEN = {
     "c": (0, 0),
@@ -67,6 +77,17 @@ def _tap_index(rows: int, cols: int) -> tuple[np.ndarray, np.ndarray]:
     return (r + dr + 1).astype(np.int64), (c + dc + 1).astype(np.int64)
 
 
+def _gather_taps(x: torch.Tensor) -> torch.Tensor:
+    """The tap matrix ``[B*H*W, 7*Cin]`` of NHWC ``x``: row m holds the 7
+    parity-correct neighbours of pixel m, zero off the board."""
+    B, H, W, Cin = x.shape
+    rows, cols = _tap_index(H, W)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))  # [B, H+2, W+2, Cin]
+    taps = xp[:, torch.from_numpy(rows).to(x.device),
+              torch.from_numpy(cols).to(x.device)]  # [B, 7, H, W, Cin]
+    return taps.permute(0, 2, 3, 1, 4).reshape(B * H * W, 7 * Cin)
+
+
 def hex_conv_plain(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch hex conv: gather the 7 parity-correct taps into a
     ``[B*H*W, 7*Cin]`` matrix and do one matmul with ``[7*Cin, Cout]``.
@@ -79,13 +100,29 @@ def hex_conv_plain(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         x = x.float()
         weights = weights.float()
-    rows, cols = _tap_index(H, W)
-    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))  # [B, H+2, W+2, Cin]
-    taps = xp[:, torch.from_numpy(rows).to(x.device),
-              torch.from_numpy(cols).to(x.device)]  # [B, 7, H, W, Cin]
-    taps = taps.permute(0, 2, 3, 1, 4).reshape(B * H * W, 7 * Cin)
-    y = taps @ weights.reshape(7 * Cin, Cout)
+    y = _gather_taps(x) @ weights.reshape(7 * Cin, Cout)
     return y.reshape(B, H, W, Cout).to(out_dtype)
+
+
+def mirror_taps(weights: torch.Tensor) -> torch.Tensor:
+    """``W'[s] = W[opp(s)]^T``, ``[7, Cout, Cin]``: the weights whose hex
+    conv of dY is dX."""
+    return weights[list(OPPOSITE_TAP)].transpose(1, 2).contiguous()
+
+
+def hex_conv_dx_plain(dy: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain dX of the hex conv: the plain hex conv of dY with the mirrored
+    taps, in dY's dtype."""
+    return hex_conv_plain(dy, mirror_taps(weights))
+
+
+def hex_conv_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain dW of the hex conv, ``[7, Cin, Cout]``: the gathered tap matrix
+    transposed times dY, ``[M, 7*Cin]^T @ [M, Cout]`` in f32, cast once to
+    the operands' dtype."""
+    Cin, Cout = x.shape[-1], dy.shape[-1]
+    dw = _gather_taps(x.float()).t() @ dy.float().reshape(-1, Cout)
+    return dw.reshape(7, Cin, Cout).to(x.dtype)
 
 
 def dual3x3_weights(weights: torch.Tensor) -> torch.Tensor:
@@ -115,10 +152,39 @@ def hex_conv_dual3x3(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.where(odd, y[..., 1, :], y[..., 0, :])
 
 
-def hex_conv(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """NHWC hex conv: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (which raises rather than fall back)."""
-    if x.device.type == "cpu":
-        return hex_conv_plain(x, weights)
-    return hex_conv_cuda(x, weights)
+class HexConvFunction(torch.autograd.Function):
+    """The hex conv with its backward on the same device path as its
+    forward: the plain versions for CPU tensors, the CUDA kernels for CUDA
+    tensors (dX on the forward kernel with ``mirror_taps``, dW on the dW
+    kernel), which raise rather than fall back.  dX and dW come out in the
+    operands' dtype, as the JAX VJP through the bf16 casts gives them.
+    dX is computed only where the input needs it (a network's stem reads
+    the observation, which does not)."""
 
+    @staticmethod
+    def forward(ctx, x, weights):
+        ctx.save_for_backward(x, weights)
+        if x.device.type == "cpu":
+            return hex_conv_plain(x, weights)
+        return hex_conv_cuda(x, weights)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weights = ctx.saved_tensors
+        dy = dy.contiguous()
+        cpu = x.device.type == "cpu"
+        dx = dw = None
+        # dW before dX: on the card, every forward-kernel launch after an
+        # update's first dW launch is then a dX (chip_smoke.py's profile
+        # splits the forward kernel's time that way).
+        if ctx.needs_input_grad[1]:
+            dw = hex_conv_dw_plain(x, dy) if cpu else hex_conv_dw_cuda(x, dy)
+        if ctx.needs_input_grad[0]:
+            dx = hex_conv_dx_plain(dy, weights) if cpu else hex_conv_cuda(dy, mirror_taps(weights))
+        return dx, dw
+
+
+def hex_conv(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """NHWC hex conv, differentiable: the plain version for CPU tensors,
+    the CUDA kernels for CUDA tensors (which raise rather than fall back)."""
+    return HexConvFunction.apply(x, weights)

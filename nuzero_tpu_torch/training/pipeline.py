@@ -1,0 +1,339 @@
+"""AlphaZero coordinator: self-play -> replay -> SGD (counterpart of
+``nuzero_tpu/training/pipeline.py``; behavioral target the reference's
+``Training/AlphaZero.py`` ``run()``).
+
+The sequential running mode: an early buffer fill with softened
+exploration, then per training step self-play until the step's games
+finish, the learner's updates (the samples or the epochs method), a
+journal record and, every ``save_frequency`` steps, a checkpoint.  Self-
+play, replay and SGD all work on tensors on the env's device; the host
+loop sequences them and does the IO.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+option: the asynchronous running mode, in-loop tests and early testing
+(they need the evaluation package), state-set value probes, loss and
+weight plots, more than one game type, a mesh, ``NUZERO_MFU`` and
+``NUZERO_TRACE_DIR``, and the partial buffer load by step on resume.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nuzero_tpu_torch.config.schemas import TrainingConfig
+from nuzero_tpu_torch.networks.manager import NetworkManager
+from nuzero_tpu_torch.search.mcts import SearchParams
+from nuzero_tpu_torch.training import replay as replay_lib
+from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, TrainState
+from nuzero_tpu_torch.training.selfplay import init_selfplay, make_selfplay_step
+from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from nuzero_tpu_torch.utils.metrics import MetricsJournal, PrintBar
+from nuzero_tpu_torch.utils.packing import make_packer
+from nuzero_tpu_torch.utils.profiling import PhaseTimers
+
+
+def learner_config_from_training(cfg: TrainingConfig, num_game_types: int = 1) -> LearnerConfig:
+    ti = cfg.recurrent.train_iterations
+    per_type = (
+        tuple(ti[t] if t < len(ti) else ti[0] for t in range(num_game_types))
+        if num_game_types > 1 else ()
+    )
+    return LearnerConfig(
+        train_iterations_per_type=per_type,
+        policy_loss=cfg.learning.policy_loss,
+        value_loss=cfg.learning.value_loss,
+        normalize_policy=cfg.learning.normalize_cel,
+        optimizer=cfg.optimizer.optimizer_choice,
+        learning_rate=cfg.optimizer.starting_lr,
+        scheduler_boundaries=cfg.optimizer.scheduler_boundaries,
+        scheduler_gamma=cfg.optimizer.scheduler_gamma,
+        weight_decay=cfg.optimizer.weight_decay,
+        momentum=cfg.optimizer.momentum,
+        nesterov=cfg.optimizer.nesterov,
+        train_iterations=cfg.recurrent.train_iterations[0],
+        prog_alpha=cfg.recurrent.alpha,
+    )
+
+
+def unported_options(cfg: TrainingConfig, envs=1, state_set=None, mesh=None) -> list:
+    """The options of this configuration that the port does not run yet."""
+    t, p = cfg.testing, cfg.plotting
+    named = {
+        "running_mode 'asynchronous'": cfg.running.running_mode == "asynchronous",
+        "Testing.early_testing": t.early_testing,
+        "Testing.policy_test_frequency (in-loop tests)": bool(t.policy_test_frequency),
+        "Testing.mcts_test_frequency (in-loop tests)": bool(t.mcts_test_frequency),
+        "Testing.asynchronous_testing": t.asynchronous_testing,
+        "Testing.goal_rush_opponent": t.goal_rush_opponent,
+        "Plotting.plot_loss": p.plot_loss,
+        "Plotting.plot_weights": p.plot_weights,
+        "state_set (value probes)": state_set is not None,
+        "more than one game type": envs > 1,
+        "mesh": mesh is not None,
+        "NUZERO_MFU": bool(os.environ.get("NUZERO_MFU")),
+        "NUZERO_TRACE_DIR": bool(os.environ.get("NUZERO_TRACE_DIR")),
+    }
+    return [name for name, asked in named.items() if asked]
+
+
+class AlphaZero:
+    """Training coordinator (ref class ``AlphaZero``, ``AlphaZero.py:54``).
+    Runs on the env's device."""
+
+    # How many move-batches the host runs ahead before it reads a batch's
+    # finished-game count (the JAX coordinator's PIPELINE_DEPTH).
+    PIPELINE_DEPTH = 3
+
+    def __init__(
+        self,
+        env,
+        manager: NetworkManager,
+        train_config: TrainingConfig,
+        search_params: SearchParams,
+        run_dir: Optional[str] = None,
+        state_set=None,
+        mesh=None,
+    ):
+        envs = list(env) if isinstance(env, (list, tuple)) else [env]
+        missing = unported_options(train_config, len(envs), state_set, mesh)
+        if missing:
+            raise NotImplementedError(
+                "not ported to the PyTorch pipeline yet: " + ", ".join(missing))
+        if train_config.running.num_games_per_type_per_step < 1:
+            raise ValueError(
+                "sequential running_mode requires num_games_per_type_per_step >= 1")
+        env = envs[0]
+        self.env = env
+        self.device = env.device
+        self.manager = manager
+        self.cfg = train_config
+        self.search_params = search_params
+        self.run_dir = run_dir
+        self.journal = MetricsJournal(
+            os.path.join(run_dir, "journal.jsonl") if run_dir else None)
+        if train_config.cache.cache_choice not in ("disabled", "none"):
+            print("note: Cache.cache_choice is obsolete on this runtime (self-play "
+                  "leaf inference is batched on the device); ignoring")
+
+        self.learner = Learner(manager, learner_config_from_training(train_config))
+        pred_iters = train_config.recurrent.pred_iterations[0]
+
+        def net(variables, obs):
+            p, v, _ = manager.apply(variables, obs, iters_to_do=pred_iters)
+            return p, v
+
+        # Early-fill exploration overrides (ref AlphaZero.py:385-387,503-517).
+        early_params = dataclasses.replace(
+            search_params,
+            number_of_softmax_moves=train_config.running.early_softmax_moves,
+            epsilon_softmax_exploration=train_config.running.early_softmax_exploration,
+            epsilon_random_exploration=train_config.running.early_random_exploration,
+        )
+        self.sp_step = make_selfplay_step(env, net, search_params, training=True, game_type=0)
+        self.sp_step_early = make_selfplay_step(env, net, early_params, training=True,
+                                                game_type=0)
+        _, self._unpack, self.state_dim = make_packer(env.init(1))
+        self.trajectory_length = (
+            train_config.running.max_trajectory_length or env.max_game_length)
+        self.buffer = replay_lib.create_buffer(
+            train_config.learning.replay_window_size, self.trajectory_length,
+            self.state_dim, env.num_actions, device=self.device,
+        )
+        self._sp_batches = 0  # move-batches launched this step (throughput)
+
+    # -- phases --------------------------------------------------------------
+
+    def _observe(self, states: torch.Tensor) -> torch.Tensor:
+        """Observations rebuilt from packed states (``env.observe`` over the
+        unpacked batch)."""
+        return self.env.observe(self._unpack(states[:, :self.state_dim]))
+
+    def _sample_obs(self, rng, batch_size, *, late_heavy, with_replacement):
+        enc, pol, val, gt = replay_lib.sample(
+            self.buffer, rng, batch_size, late_heavy=late_heavy,
+            with_replacement=with_replacement)
+        return self._observe(enc), pol, val, gt
+
+    def _gather_obs(self, idx):
+        enc, pol, val, gt = replay_lib.gather(self.buffer, idx)
+        return self._observe(enc), pol, val, gt
+
+    def _selfplay_until(self, state, sp, step_fn, target_games: int, progress=None):
+        """Run lockstep move-batches until ``target_games`` finish.  The
+        finished count the loop reads lags PIPELINE_DEPTH batches behind, so
+        up to that many extra move-batches run past the target; their games
+        land in the buffer and in the returned total."""
+        done = 0
+        stats = {}
+        pending: collections.deque = collections.deque()
+
+        def settle(finished_count):
+            nonlocal done
+            n = int(finished_count)
+            done += n
+            if progress is not None and n:
+                progress(n)
+
+        while done < target_games:
+            sp, finished, stats = step_fn(state.params, sp)
+            self._sp_batches += 1
+            self.buffer = replay_lib.add_games(self.buffer, finished)
+            pending.append(stats["finished"])
+            if len(pending) > self.PIPELINE_DEPTH:
+                settle(pending.popleft())
+        for f in pending:
+            settle(f)
+        return sp, done, stats
+
+    def _train_once(self, state: TrainState):
+        cfg = self.cfg.learning
+        metrics = {}
+        if cfg.learning_method == "samples":
+            for _ in range(cfg.num_samples):
+                batch = self._sample_obs(
+                    self._rng, cfg.batch_size, late_heavy=cfg.late_heavy,
+                    with_replacement=cfg.with_replacement)
+                state, metrics = self.learner.train_step(state, batch, self._host_rng)
+        elif cfg.learning_method == "epochs":
+            # Shuffle and sweep (ref AlphaZero.py:686-737): each epoch permutes
+            # the valid positions once and slices full batches in order; the
+            # n_positions % batch_size remainder is dropped.
+            bs = cfg.epochs_batch_size
+            n_pos = int(self.buffer.num_positions)
+            if bs > n_pos:
+                raise ValueError("Batch size too large; use early_fill to pre-fill "
+                                 "the replay buffer (ref AlphaZero.py:690-693)")
+            n_batches = n_pos // bs
+            # Per-epoch mean losses, kept apart from the last update's
+            # metrics (the JAX loop's next update overwrites all but the
+            # last epoch's).
+            epoch_losses = {}
+            for e in range(cfg.learning_epochs):
+                perm = replay_lib.epoch_permutation(self.buffer, self._rng)
+                ep_loss = 0.0
+                for b in range(n_batches):
+                    batch = self._gather_obs(perm[b * bs:(b + 1) * bs])
+                    state, metrics = self.learner.train_step(state, batch, self._host_rng)
+                    ep_loss = ep_loss + metrics["loss/combined"]
+                if cfg.plot_epochs and n_batches:
+                    epoch_losses[f"loss/epoch{e}"] = float(ep_loss) / n_batches
+            metrics.update(epoch_losses)
+        else:
+            raise ValueError(f"bad learning_method {cfg.learning_method!r}")
+        return state, metrics
+
+    # -- main loop -----------------------------------------------------------
+
+    def run(self, seed: int = 0, initial_state: Optional[TrainState] = None,
+            starting_step: int = 0) -> TrainState:
+        cfg = self.cfg
+        dev = self.device
+        self._rng = torch.Generator(device=dev).manual_seed(seed)  # replay draws
+        self._host_rng = torch.Generator().manual_seed(seed)  # progressive (n, k)
+        init_rng = torch.Generator(device=dev).manual_seed(seed + 1)
+        state = initial_state or self.learner.init_state(init_rng)
+        sp = init_selfplay(
+            self.env, cfg.running.num_actors,
+            torch.Generator(device=dev).manual_seed(seed + 2),
+            self.trajectory_length, search_params=self.search_params,
+            state_dim=self.state_dim,
+        )
+
+        if cfg.running.early_fill_per_type > 0 and starting_step == 0:
+            t0 = time.time()
+            bar = PrintBar("early fill", cfg.running.early_fill_per_type)
+            sp, total, _ = self._selfplay_until(
+                state, sp, self.sp_step_early, cfg.running.early_fill_per_type,
+                progress=bar.next)
+            bar.finish()
+            print(f"early fill: {total} games in {time.time() - t0:.1f}s "
+                  f"({int(self.buffer.num_positions)} positions)")
+
+        timers = PhaseTimers(dev)
+        for step in range(starting_step + 1, cfg.running.training_steps + 1):
+            t0 = time.time()
+            self._sp_batches = 0
+            with timers.phase("selfplay"):
+                sp, games, sp_stats = self._selfplay_until(
+                    state, sp, self.sp_step, cfg.running.num_games_per_type_per_step)
+            with timers.phase("train"):
+                state, tr_metrics = self._train_once(state)
+
+            record = {
+                "step": step,
+                "games": games,
+                "buffer_games": self.buffer.num_games,
+                "buffer_positions": int(self.buffer.num_positions),
+                # Insertion count at this step (the step_to_size_map equivalent
+                # for partial buffer loads, ref ReplayBuffer.py:64-104).
+                "buffer_seq": self.buffer.games_added,
+                "updates": state.step,
+                "loss/combined": float(tr_metrics.get("loss/combined", np.nan)),
+                "loss/policy": float(tr_metrics.get("loss/policy", np.nan)),
+                "loss/value": float(tr_metrics.get("loss/value", np.nan)),
+                "selfplay/root_value": float(sp_stats.get("root_value_mean", np.nan)),
+                "selfplay/tree_full_frac": float(sp_stats.get("tree_full_frac", 0.0)),
+                "selfplay/children_per_node": float(
+                    sp_stats.get("children_per_node_mean", np.nan)),
+                "step_time_s": time.time() - t0,
+            }
+            sp_time = timers._last.get("selfplay", 0.0)
+            if self._sp_batches and sp_time > 0:
+                record["selfplay/env_steps_per_s"] = round(
+                    self._sp_batches * cfg.running.num_actors
+                    * self.search_params.num_simulations / sp_time)
+            for k, v in tr_metrics.items():
+                if k.startswith("loss/type") or k.startswith("loss/epoch"):
+                    record[k] = float(v)
+            record.update(timers.metrics())
+            self.journal.append(record)
+
+            if self.run_dir and step % cfg.saving.save_frequency == 0:
+                with timers.phase("checkpoint"):
+                    tree = {"params": state.params, "opt_state": state.opt_state,
+                            "step": state.step}
+                    if cfg.saving.save_buffer:
+                        tree["buffer"] = {f.name: getattr(self.buffer, f.name)
+                                          for f in dataclasses.fields(self.buffer)}
+                    save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
+        return state
+
+    # -- resume --------------------------------------------------------------
+
+    def load(self, step: int | str = "auto") -> tuple[TrainState, int]:
+        """Restore params, optimizer state and buffer from this run's
+        checkpoints (ref ``AlphaZero.py:110-146`` + ``ReplayBuffer.py:80-104``)
+        -> (state, step)."""
+        assert self.run_dir is not None
+        template = self.learner.init_state(torch.Generator(device=self.device).manual_seed(0))
+        target = {"params": template.params, "opt_state": template.opt_state, "step": 0,
+                  "buffer": {f.name: getattr(self.buffer, f.name)
+                             for f in dataclasses.fields(self.buffer)}}
+        tree, step = restore_checkpoint(
+            os.path.join(self.run_dir, "checkpoints"), step, target, device=self.device)
+        ckpt = self.cfg.checkpoint
+        if "buffer" in tree and ckpt.load_buffer:
+            self.buffer = replay_lib.ReplayBuffer(**tree["buffer"])
+        elif ckpt.load_buffer:
+            raise NotImplementedError(
+                "not ported to the PyTorch pipeline yet: load_buffer from a checkpoint "
+                "without a buffer (the partial buffer load by step, load_buffer_at_step)")
+        opt_state = (tree["opt_state"] if ckpt.keep_optimizer
+                     else self.learner.init_opt_state(tree["params"]))
+        # keep_scheduler: resume or restart the LR schedule independently of
+        # the optimizer moments (ref AlphaZero.py:110-146).
+        opt_state = self.learner.set_schedule_count(
+            opt_state, tree["step"] if ckpt.keep_scheduler else 0)
+        state = TrainState(params=tree["params"], opt_state=opt_state,
+                           step=0 if ckpt.fresh_start else tree["step"])
+        if ckpt.fresh_start:
+            step = 0
+        self.journal.truncate_to_step(0 if ckpt.new_plots else step)
+        return state, step

@@ -1,6 +1,20 @@
-"""Finished-game records emitted by self-play (counterpart of the
-``FinishedGames`` record in ``nuzero_tpu/training/replay.py``; the replay
-ring itself is not ported yet)."""
+"""Device-resident replay buffer with game-count windowing (counterpart of
+``nuzero_tpu/training/replay.py``; behavioral target
+``Training/ReplayBuffer.py``).
+
+A ring of game slots ``[capacity_games, max_game_length, ...]`` on the
+card: finished games from the lockstep self-play are written into ring
+slots, and sampling flattens (slot, position) into one draw.  Positions
+are stored as packed env states (``utils.packing``), and the samplers
+rebuild observations from the drawn states with ``env.observe``, as the
+JAX package does.  Value targets are the game's terminal value over its
+positions.
+
+Unlike the JAX buffer, this one is updated in place (``add_games`` writes
+into the existing tensors rather than returning a copy of gigabytes), and
+its ring pointer and insertion count are host integers.  Random draws
+come from an explicit ``torch.Generator`` on the buffer's device.
+"""
 
 from __future__ import annotations
 
@@ -19,3 +33,173 @@ class FinishedGames:
     length: torch.Tensor  # i32[B] positions recorded
     game_type: torch.Tensor  # i32[B]
     mask: torch.Tensor  # bool[B] True where the row is a real finished game
+
+
+@dataclasses.dataclass
+class ReplayBuffer:
+    states: torch.Tensor  # f32[G, L, D] packed env states
+    policy: torch.Tensor  # f32[G, L, A]
+    value: torch.Tensor  # f32[G, L]
+    length: torch.Tensor  # i32[G] 0 = empty slot
+    game_type: torch.Tensor  # i32[G]
+    seq: torch.Tensor  # i32[G] insertion sequence number (-1 = empty)
+    ptr: int  # next ring slot
+    games_added: int  # total games ever added
+
+    @property
+    def capacity(self) -> int:
+        return self.length.shape[0]
+
+    @property
+    def num_games(self) -> int:
+        return min(self.games_added, self.capacity)
+
+    @property
+    def num_positions(self) -> torch.Tensor:
+        return self.length.sum()
+
+
+def create_buffer(
+    capacity_games: int,
+    max_game_length: int,
+    state_dim: int,
+    num_actions: int,
+    device="cuda",
+) -> ReplayBuffer:
+    """``state_dim``: width of the packed-state vectors."""
+    G, L = capacity_games, max_game_length
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return ReplayBuffer(
+        states=zeros(G, L, state_dim),
+        policy=zeros(G, L, num_actions),
+        value=zeros(G, L),
+        length=zeros(G, dtype=torch.int32),
+        game_type=zeros(G, dtype=torch.int32),
+        seq=torch.full((G,), -1, dtype=torch.int32, device=device),
+        ptr=0,
+        games_added=0,
+    )
+
+
+def add_games(buffer: ReplayBuffer, finished: FinishedGames) -> ReplayBuffer:
+    """Write the real rows of ``finished`` (``mask``) into the next ring
+    slots, in row order; masked-out rows are dropped, and of more real rows
+    than the ring holds only the last ``capacity`` stay.  In place; returns
+    the buffer."""
+    rows = torch.nonzero(finished.mask).squeeze(1)  # reads the count on the host
+    n = rows.numel()
+    if n == 0:
+        return buffer
+    G, L = buffer.capacity, buffer.states.shape[1]
+    dev = buffer.length.device
+    offset = torch.arange(n, device=dev)
+    if n > G:
+        rows, offset = rows[n - G:], offset[n - G:]
+    slot = (buffer.ptr + offset) % G
+    length = finished.length[rows]
+    pos_valid = torch.arange(L, device=dev)[None, :] < length[:, None]
+    buffer.states[slot] = finished.states[rows]
+    buffer.policy[slot] = finished.policy[rows]
+    buffer.value[slot] = torch.where(pos_valid, finished.final_value[rows][:, None], 0.0)
+    buffer.length[slot] = length.to(torch.int32)
+    buffer.game_type[slot] = finished.game_type[rows].to(torch.int32)
+    buffer.seq[slot] = (buffer.games_added + offset).to(torch.int32)
+    buffer.ptr = (buffer.ptr + n) % G
+    buffer.games_added += n
+    return buffer
+
+
+def truncate_to_seq(buffer: ReplayBuffer, seq_limit: int) -> ReplayBuffer:
+    """The buffer as it was just before insertion ``seq_limit``: games
+    inserted at or after it are dropped (their slots empty; older games they
+    overwrote cannot be recovered), and the insertion count and ring pointer
+    are reset to ``seq_limit``.  Returns a new buffer sharing the position
+    tensors."""
+    keep = (buffer.seq >= 0) & (buffer.seq < seq_limit)
+    return dataclasses.replace(
+        buffer,
+        length=torch.where(keep, buffer.length, 0),
+        seq=torch.where(keep, buffer.seq, -1),
+        game_type=torch.where(keep, buffer.game_type, 0),
+        games_added=min(buffer.games_added, seq_limit),
+        ptr=seq_limit % buffer.capacity,
+    )
+
+
+def _valid(buffer: ReplayBuffer) -> torch.Tensor:
+    L = buffer.value.shape[1]
+    return torch.arange(L, device=buffer.length.device)[None, :] < buffer.length[:, None]
+
+
+def position_weights(buffer: ReplayBuffer, late_heavy: bool) -> torch.Tensor:
+    """f32[G, L] unnormalized sampling weights over valid positions.
+
+    ``late_heavy`` is the reference's linear recency ramp
+    (``AlphaZero.py:779-792``): weight = 0.25 + 0.5 * rank, with rank the
+    game's normalized insertion order in (0, 1]."""
+    valid = _valid(buffer)
+    if not late_heavy:
+        return valid.to(torch.float32)
+    num = float(max(buffer.num_games, 1))
+    oldest = buffer.games_added - buffer.num_games  # seq of the oldest retained
+    rank = (buffer.seq - oldest + 1).to(torch.float32) / num
+    variation = 0.5
+    w = (1.0 - variation) / 2.0 + variation * rank
+    return torch.where(valid, w[:, None], 0.0)
+
+
+def epoch_permutation(buffer: ReplayBuffer, rng: torch.Generator, game_type=None):
+    """i64[G*L] flat position indices, every valid position first in
+    uniform-random order (invalid slots after): slicing the first
+    ``n_batches * batch_size`` visits each valid position at most once.
+    ``game_type`` restricts validity to one type's positions."""
+    valid = _valid(buffer)
+    if game_type is not None:
+        valid = valid & (buffer.game_type == game_type)[:, None]
+    valid = valid.reshape(-1)
+    key = torch.rand(valid.shape, generator=rng, device=valid.device)
+    key = key + torch.where(valid, 0.0, 2.0)
+    return torch.argsort(key, stable=True)
+
+
+def gather(buffer: ReplayBuffer, flat_idx: torch.Tensor):
+    """Positions by flat (game, position) index -> (states [N, D], policy
+    [N, A], value [N], game_type [N])."""
+    L = buffer.value.shape[1]
+    gi, pi = flat_idx // L, flat_idx % L
+    return (
+        buffer.states[gi, pi],
+        buffer.policy[gi, pi],
+        buffer.value[gi, pi],
+        buffer.game_type[gi],
+    )
+
+
+def sample(
+    buffer: ReplayBuffer,
+    rng: torch.Generator,
+    batch_size: int,
+    *,
+    late_heavy: bool = False,
+    with_replacement: bool = True,
+    game_type=None,
+):
+    """A training batch of positions -> (states [B, D] packed, policy
+    [B, A], value [B], game_type [B]).  With replacement a categorical draw
+    over the weights; without, Gumbel top-k.  ``game_type`` restricts the
+    draw to one game type's positions."""
+    w = position_weights(buffer, late_heavy)
+    if game_type is not None:
+        w = w * (buffer.game_type == game_type)[:, None]
+    w = w.reshape(-1)
+    if with_replacement:
+        flat = torch.multinomial(w, batch_size, replacement=True, generator=rng)
+    else:
+        logw = torch.where(w > 0, torch.log(w.clamp(min=1e-30)), float("-inf"))
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand(w.shape, generator=rng, device=w.device).clamp(min=tiny)
+        flat = torch.topk(logw - torch.log(-torch.log(u)), batch_size).indices
+    return gather(buffer, flat)

@@ -52,20 +52,24 @@ def init_selfplay(
     rng: torch.Generator,
     trajectory_capacity: int = 0,
     search_params: SearchParams | None = None,
+    state_dim: int = 0,
 ) -> SelfplayState:
     """``trajectory_capacity`` bounds stored moves per game (0 = the env's
     ``max_game_length``); games that overrun are discarded and reset.
     ``search_params`` with ``keep_subtree=True`` allocates the carried
-    search trees."""
+    search trees.  ``state_dim`` widens the packed-state rows beyond this
+    env's own width (0 = exactly this env's), so that several game types
+    can share one replay buffer."""
     dev = env.device
     games = env.init(batch_size)
     L = trajectory_capacity or env.max_game_length
-    _, _, D = make_packer(games)
+    _, _, env_dim = make_packer(games)
+    D = max(state_dim, env_dim)
     tree = None
     tree_valid = None
     if search_params is not None and search_params.keep_subtree:
         tree = init_tree(
-            batch_size, env.num_actions, _tree_capacity(search_params), D, dev
+            batch_size, env.num_actions, _tree_capacity(search_params), env_dim, dev
         )
         tree_valid = torch.zeros(batch_size, dtype=torch.bool, device=dev)
     return SelfplayState(
@@ -87,11 +91,12 @@ def make_selfplay_step(
     search_params: SearchParams,
     training: bool = True,
     draws: Optional[Draws] = None,
+    game_type: int = 0,
 ):
     """Build ``step(variables, sp) -> (sp, FinishedGames, stats)``: one
     move in every live game.  ``draws`` replaces the search's random
-    numbers (tests)."""
-    pack, _, _ = make_packer(env.init(1))
+    numbers (tests); ``game_type`` tags the emitted games."""
+    pack, _, env_dim = make_packer(env.init(1))
     search_fresh = make_search_fn(env, apply_fn, search_params, training, draws=draws)
     search_carry = make_search_fn(
         env, apply_fn, search_params, training, with_tree=True, draws=draws
@@ -115,7 +120,7 @@ def make_selfplay_step(
         # (ref Gamer.py:65-66,74-77).
         L = sp.state_buf.shape[1]
         mc = sp.move_count.long()
-        sp.state_buf[bi, mc] = pack(sp.games)
+        sp.state_buf[bi, mc, :env_dim] = pack(sp.games)
         sp.policy_buf[bi, mc] = res.policy_target
 
         stepped = env.step(sp.games, res.action)
@@ -126,7 +131,7 @@ def make_selfplay_step(
             policy=sp.policy_buf,
             final_value=env.terminal_value(stepped),
             length=sp.move_count + 1,
-            game_type=torch.zeros(B, dtype=torch.int32, device=env.device),
+            game_type=torch.full((B,), game_type, dtype=torch.int32, device=env.device),
             mask=done,
         )
 

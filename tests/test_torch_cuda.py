@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from nuzero_tpu_torch.networks.blocks import OrthoConv
+from nuzero_tpu_torch.networks.blocks import HexConv, OrthoConv
+from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-from nuzero_tpu_torch.ops.cuda.measure import RAGGED, conv_shapes
+from nuzero_tpu_torch.ops.cuda.measure import BACKWARD_RAGGED, RAGGED, conv_shapes
 
 # (Cin, Cout) of the 17 convs of one 256-filter RecurrentNet evaluation.
 LEG_256F = [(86, 256), (342, 256), (256, 256), (256, 138), (138, 21),
@@ -115,3 +116,103 @@ def test_f32_kernel_raises_past_the_shared_memory_cap(cuda_card):
     with pytest.raises(RuntimeError, match="launch failed"):
         hexconv_kernel.hex_conv_cuda(torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda())
     assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.float32]] == 0
+
+
+def _grad_inputs(b, h, w, cin, cout, dtype, seed):
+    x, wt = _inputs(b, h, w, cin, cout, seed)
+    dy = np.random.default_rng(seed + 1).standard_normal((b, h, w, cout)).astype(np.float32)
+    return (torch.from_numpy(a).to("cuda", dtype) for a in (x, wt, dy))
+
+
+# One bf16 rounding of the output (2^-8 of its value at most) on f32 sums
+# taken in another order; f32 sums over up to thousands of pixels in
+# another order.
+_BACKWARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", BACKWARD_RAGGED)
+def test_dw_kernel_matches_plain_on_card(cuda_card, dtype, b, h, w, cin, cout):
+    """The dW kernel against ``hex_conv_dw_plain`` within the dtype's
+    tolerance of max|dW| (``_BACKWARD_TOL``), and the same bits on a second
+    run (fixed-order sums, no atomics)."""
+    x, _, dy = _grad_inputs(b, h, w, cin, cout, dtype, seed=11)
+    hexconv_kernel.reset_launch_count()
+    got = hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    again = hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    want = hexconv.hex_conv_dw_plain(x, dy)
+    assert hexconv_kernel.launch_count[hexconv_kernel.DW_KERNELS[dtype]] == 2
+    assert got.shape == want.shape == (7, cin, cout) and got.dtype == dtype
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _BACKWARD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", BACKWARD_RAGGED)
+def test_dx_path_matches_plain_on_card(cuda_card, dtype, b, h, w, cin, cout):
+    """dX as the forward kernel on the mirrored taps (Cin and Cout swapped)
+    against ``hex_conv_dx_plain``, within the dtype's tolerance of max|dX|."""
+    _, wt, dy = _grad_inputs(b, h, w, cin, cout, dtype, seed=13)
+    got = hexconv_kernel.hex_conv_cuda(dy, hexconv.mirror_taps(wt))
+    want = hexconv.hex_conv_dx_plain(dy, wt)
+    assert got.shape == want.shape == (b, h, w, cin)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _BACKWARD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dw_launch_failure_raises(cuda_card, monkeypatch):
+    """A dW launch the C side refuses (here slices that do not cover the
+    pixels) raises, and is not counted."""
+    x, _, dy = _grad_inputs(2, 5, 5, 8, 8, torch.float32, seed=1)
+    monkeypatch.setattr(hexconv_kernel, "dw_slices", lambda *args: (1, 16))
+    hexconv_kernel.reset_launch_count()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    assert sum(hexconv_kernel.launch_count.values()) == 0
+
+
+def _grads(module, outputs):
+    sum((o.float() ** 2).sum() for o in outputs).backward()
+    return {k: p.grad.detach().cpu() for k, p in module.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hexconv_layer_grad_matches_cpu(cuda_card, dtype):
+    """A HexConv layer's weight and input gradients on the card (kernels)
+    against the CPU (plain versions), under torch's default TF32 flags,
+    within ``_BACKWARD_TOL`` of the largest gradient."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((16, 5, 5, 40)).astype(np.float32))
+    cpu = HexConv(40, 24, dtype=dtype)
+    card = HexConv(40, 24, dtype=dtype).cuda()
+    card.load_state_dict(cpu.state_dict())
+    xc, xg = x.clone().requires_grad_(True), x.cuda().requires_grad_(True)
+    want, got = _grads(cpu, (cpu(xc),)), _grads(card, (card(xg),))
+    want["x"], got["x"] = xc.grad, xg.grad.cpu()
+    for k in want:
+        assert (got[k] - want[k]).abs().max().item() <= (
+            _BACKWARD_TOL[dtype] * want[k].abs().max().item()), k
+
+
+@pytest.mark.cuda
+def test_recurrent_net_grad_matches_cpu(cuda_card):
+    """The parameter gradients of a small f32 hex RecurrentNet (16 filters,
+    3 iterations) on the card against the CPU, under torch's default TF32
+    flags: within 1e-4 of each tensor's largest gradient (f32 sums in
+    another order through ~20 layers)."""
+    rng = np.random.default_rng(19)
+    obs = torch.from_numpy((rng.random((8, 86, 5, 5)) < 0.2).astype(np.float32))
+    cpu = RecurrentNet(86, 21, num_filters=16, num_blocks=2)
+    card = RecurrentNet(86, 21, num_filters=16, num_blocks=2).cuda()
+    card.load_state_dict(cpu.state_dict())
+    hexconv_kernel.reset_launch_count()
+    want = _grads(cpu, cpu(obs, 3)[0])
+    got = _grads(card, card(obs.cuda(), 3)[0])
+    assert hexconv_kernel.launch_count[hexconv_kernel.DW_KERNELS[torch.float32]] == 1 + 3 * 5 + 6
+    for k in want:
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4 * want[k].abs().max().item(), k

@@ -1,6 +1,8 @@
-"""Port hygiene: ``nuzero_tpu_torch`` imports without JAX (the CUDA wrapper
-included, without nvcc), and ``chip_smoke.py`` refuses to run without a
-CUDA card instead of falling back to the CPU."""
+"""Port hygiene: ``nuzero_tpu_torch`` imports without JAX (the CUDA wrappers
+included, without nvcc), its entry points default to the card, and
+``chip_smoke.py`` refuses to run without a CUDA card instead of falling
+back to the CPU; its pure helpers (shapes, bounds, launch counts, the SASS
+check, the library yardstick's layout) are checked here."""
 
 import inspect
 import os
@@ -12,9 +14,17 @@ import sys
 
 import pytest
 
+import torch
+
 import chip_smoke
 from nuzero_tpu_torch.envs.scs.game import SCSGame
+from nuzero_tpu_torch.envs.scs.scenario import load_scenario
+from nuzero_tpu_torch.networks.manager import NetworkManager
+from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.search.tree import init_tree
+from nuzero_tpu_torch.training.learner import Learner, LearnerConfig
+from nuzero_tpu_torch.training.replay import create_buffer
+from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "nuzero_tpu_torch"
@@ -28,12 +38,16 @@ import nuzero_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(nuzero_tpu_torch.__path__, "nuzero_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "nuzero_tpu_torch.ops.cuda.hexconv_kernel" in names, names
+for module in ("ops.cuda.hexconv_kernel", "training.learner", "training.losses",
+               "training.pipeline", "training.replay", "utils.checkpoint", "utils.metrics",
+               "utils.profiling", "config.schemas"):
+    assert "nuzero_tpu_torch." + module in names, (module, names)
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-x = torch.randn(2, 5, 5, 4)
-w = torch.randn(7, 4, 3)
-hexconv.hex_conv(x, w)
+x = torch.randn(2, 5, 5, 4, requires_grad=True)
+w = torch.randn(7, 4, 3, requires_grad=True)
+hexconv.hex_conv(x, w).sum().backward()
+assert x.grad is not None and w.grad is not None
 assert sum(hexconv_kernel.launch_count.values()) == 0
 print("imported", len(names))
 """
@@ -85,10 +99,34 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("entry", [SCSGame.__init__, init_tree])
+@pytest.mark.parametrize("entry", [SCSGame.__init__, init_tree, create_buffer,
+                                   restore_checkpoint])
 def test_entry_points_default_to_the_card(entry):
     """The port runs on the card unless the caller asks for the CPU."""
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_training_entry_points_follow_their_inputs(tmp_path):
+    """``Learner`` and ``AlphaZero`` take no device of their own: they run
+    where the module and the env they are given lie (the card by default)."""
+    from nuzero_tpu_torch.config.schemas import (
+        PlottingConfig, TestingFrequencyConfig, TrainingConfig,
+    )
+    from nuzero_tpu_torch.search.mcts import SearchParams
+    from nuzero_tpu_torch.training.pipeline import AlphaZero
+
+    for entry in (Learner.__init__, AlphaZero.__init__):
+        assert "device" not in inspect.signature(entry).parameters
+    env = SCSGame(load_scenario(str(REPO / "configs/scenarios/open_field_5.yml"), seed=42),
+                  device="cpu")
+    mgr = NetworkManager(RecurrentNet(86, 21, num_filters=8), env.observation_shape)
+    state = Learner(mgr, LearnerConfig()).init_state(torch.Generator().manual_seed(0))
+    assert {v.device.type for v in state.params.values()} == {"cpu"}
+    cfg = TrainingConfig(testing=TestingFrequencyConfig(policy_test_frequency=0,
+                                                        mcts_test_frequency=0),
+                         plotting=PlottingConfig(plot_loss=False))
+    az = AlphaZero(env, mgr, cfg, SearchParams(num_simulations=2), run_dir=str(tmp_path))
+    assert az.device.type == "cpu" and az.buffer.states.device.type == "cpu"
 
 
 @pytest.mark.parametrize("dtype,batch,cin,cout,ms,by", [
@@ -100,10 +138,18 @@ def test_entry_points_default_to_the_card(entry):
     ("float32", 512, 64, 64, 2 * 7 * 12800 * 64 * 64 / 67e9, "operations"),
     # the value ramp's last f32 conv moves more bytes than it does FLOPs
     ("float32", 512, 16, 1, (12800 * 16 + 7 * 16 * 1 + 12800 * 1) * 4 / 3.35e9, "bytes"),
+    # a training update's recall conv (M = 256*25): dW of 342->256, and its
+    # dX, the forward kernel at 256->342, do the same operations
+    ("bfloat16", 256, 342, 256, 2 * 7 * 6400 * 342 * 256 / 989e9, "operations"),
+    ("bfloat16", 256, 256, 342, 2 * 7 * 6400 * 342 * 256 / 989e9, "operations"),
+    # dW of the value ramp's last conv, x [M, 64] and dY [M, 1]
+    ("float32", 256, 64, 1, (6400 * 64 + 7 * 64 * 1 + 6400 * 1) * 4 / 3.35e9, "bytes"),
 ])
 def test_chip_smoke_bound(dtype, batch, cin, cout, ms, by):
-    """The least time chip_smoke.py reports for a 5x5 hex conv: the larger
-    of the operations and the bytes at the card's peaks, and which one."""
+    """The least time chip_smoke.py reports for a 5x5 hex conv, and for the
+    dW and dX of one (inputs read once, the output written once): the
+    larger of the operations and the bytes at the card's peaks, and which
+    one."""
     got_ms, got_by = chip_smoke.bound(dtype, batch, 5, 5, cin, cout)
     assert got_by == by
     assert abs(got_ms - ms) <= 1e-9 * ms
@@ -163,15 +209,72 @@ def test_chip_smoke_sass_counts():
 
 
 def test_chip_smoke_checks_every_kernel():
-    """Phase 1 holds each dtype's kernel to its SASS rule, and phase 2's
-    ragged f32 cases cover odd Cin, pixel counts off the block size, odd
-    and even widths and Cout of 1 and 42."""
-    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import KERNELS
+    """Phase 1 holds every kernel to a SASS rule (the dW kernels: FFMA, no
+    tensor-core instruction), and phase 2's ragged f32 cases cover odd Cin,
+    pixel counts off the block size, odd and even widths and Cout of 1 and
+    42."""
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import DW_KERNELS, KERNELS
 
-    assert {str(d).removeprefix("torch.") for d in KERNELS} == set(chip_smoke.SASS)
-    assert chip_smoke.SASS["float32"] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
+    assert set(chip_smoke.SASS) == {*KERNELS.values(), *DW_KERNELS.values()}
+    assert chip_smoke.SASS["hexconv_f32_kernel"] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
+    for name in DW_KERNELS.values():
+        assert chip_smoke.SASS[name] == (("FFMA",), ("HMMA", "HGMMA"))
     ragged = chip_smoke.RAGGED
     assert any(cin % 2 for _, _, _, cin, _ in ragged)
     assert any((b * h * w) % 64 for b, h, w, _, _ in ragged)
     assert {w % 2 for _, _, w, _, _ in ragged} == {0, 1}
     assert {1, 42} <= {cout for *_, cout in ragged}
+
+
+def test_chip_smoke_backward_ragged_shapes():
+    """The backward's ragged cases: dW with Cin 1 and 21 and Cout 1 and 342;
+    dX (Cin and Cout swapped) with Cin 1 and 21 and Cout 342, 150, 138 and
+    86; odd widths; pixel counts off the dW kernel's 16-pixel chunk."""
+    ragged = chip_smoke.BACKWARD_RAGGED
+    cins, couts = {s[3] for s in ragged}, {s[4] for s in ragged}
+    assert {1, 21} <= cins and {1, 342} <= couts
+    assert {1, 21} <= couts and {342, 150, 138, 86} <= cins
+    assert {w % 2 for _, _, w, _, _ in ragged} == {0, 1}
+    assert any((b * h * w) % 16 for b, h, w, _, _ in ragged)
+
+
+@pytest.mark.parametrize("filters,shapes", [
+    (256, [(86, 256, 1), (342, 256, 4), (256, 256, 16), (256, 138, 1), (138, 21, 1),
+           (256, 192, 1), (192, 128, 1), (128, 64, 1), (64, 1, 1)]),
+    (64, [(86, 64, 1), (150, 64, 4), (64, 64, 16), (64, 42, 1), (42, 21, 1),
+          (64, 48, 1), (48, 32, 1), (32, 16, 1), (16, 1, 1)]),
+])
+def test_chip_smoke_update_shapes_and_launches(filters, shapes):
+    """One training update at 4 iterations runs 27 hex convs: 27 forward
+    launches, 26 dX (all but the stem's) and 27 dW."""
+    assert chip_smoke.conv_shapes(filters, iterations=chip_smoke.TRAIN_ITERS) == shapes
+    assert chip_smoke.launches_per_update() == {"forward": 27, "dx": 26, "dw": 27}
+    assert sum(n for *_, n in shapes) == 27
+
+
+def test_library_backward_is_the_hex_backward():
+    """The dX/dW yardstick (cuDNN's ``convolution_backward`` of the dual 3x3
+    conv, here on the CPU) computes the hex conv's backward once mapped back
+    to the hex layout (f32, 1e-5 of the largest value)."""
+    from nuzero_tpu_torch.ops import hexconv
+
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(2, 5, 7, 6, generator=gen), torch.randn(7, 6, 3, generator=gen)
+    dy = torch.randn(2, 5, 7, 3, generator=gen)
+    dx_call, dw_call, to_hex = chip_smoke.library_backward(x, w, dy)
+    dx, dw = to_hex(dx_call(), dw_call())
+    for got, want in ((dx, hexconv.hex_conv_dx_plain(dy, w)),
+                      (dw, hexconv.hex_conv_dw_plain(x, dy))):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_dw_slices_cover_every_pixel():
+    """The dW kernel's grid: every slice non-empty, a whole number of
+    16-pixel chunks, together covering all pixels; about eight blocks per
+    SM where the pixels allow it."""
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import dw_slices
+
+    for m, cin, cout in ((6400, 342, 256), (6400, 64, 1), (25, 1, 1), (12800, 86, 64)):
+        slices, per = dw_slices(m, cin, cout, 132)
+        assert per % 16 == 0 and slices * per >= m > (slices - 1) * per
+    assert dw_slices(6400, 342, 256, 132) == (7, 928)  # 152 tiles x 7 = 1064 blocks

@@ -166,3 +166,37 @@ def test_trajectory_overflow_discards_and_resets():
     assert not bool(sp.tree_valid.any())
     assert int(sp.total_games) == 0 and int(sp.total_moves) == 2 * B
     torch.testing.assert_close(pack(sp.games), fresh, rtol=0, atol=0)
+
+
+def test_selfplay_state_dim_and_game_type_match_jax():
+    """``init_selfplay(state_dim=...)`` widens the packed-state rows with
+    zero padding and ``make_selfplay_step(game_type=...)`` tags the emitted
+    games, as in the JAX step (two games, two simulations, two moves)."""
+    B, sims, wide, gtype = 2, 2, 200, 1
+    jenv = JaxSCSGame(jax_load_scenario(PATH, seed=42, turns=2))
+    tenv = SCSGame(load_scenario(PATH, seed=42, turns=2), device="cpu")
+    jmgr = JaxManager(JaxRecurrentNet(policy_channels=jenv.action_space_shape[0],
+                                      num_filters=8, num_blocks=2), jenv.observation_shape)
+    jvars = jax.jit(jmgr.init)(jax.random.key(0))
+
+    def jnet(v, obs):
+        p, val, _ = jmgr.apply(v, obs, iters_to_do=2)
+        return p, val
+
+    _, tnet = _torch_net(tenv)
+    tvars = {k: torch.tensor(v) for k, v in
+             recurrent_net_state_dict(jax.tree.map(np.asarray, jvars)).items()}
+    jparams, tparams = JaxSearchParams(num_simulations=sims), SearchParams(num_simulations=sims)
+    jstep = jax.jit(jax_make_selfplay_step(jenv, jnet, jparams, training=False,
+                                           game_type=gtype))
+    tstep = make_selfplay_step(tenv, tnet, tparams, training=False, game_type=gtype)
+    jsp = jax_init_selfplay(jenv, B, jax.random.key(1), search_params=jparams, state_dim=wide)
+    tsp = init_selfplay(tenv, B, torch.Generator().manual_seed(1), search_params=tparams,
+                        state_dim=wide)
+    assert tsp.state_buf.shape == jsp.state_buf.shape and tsp.state_buf.shape[2] == wide
+    for _ in range(2):
+        jsp, jfin, _ = jstep(jvars, jsp)
+        tsp, tfin, _ = tstep(tvars, tsp)
+        np.testing.assert_array_equal(tsp.state_buf.numpy(), np.asarray(jsp.state_buf))
+        np.testing.assert_array_equal(tfin.game_type.numpy(), np.asarray(jfin.game_type))
+    assert (tfin.game_type == gtype).all()
