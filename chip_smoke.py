@@ -10,8 +10,10 @@ Phases, each of which must pass:
    ``cuobjdump -sass`` (``SASS``): the bf16 forward kernel runs on Hopper's
    warpgroup tensor cores (``HGMMA``); the f32 forward kernel does FFMA on
    the CUDA cores, fed by ``cp.async`` (``LDGSTS``), and holds no
-   tensor-core instruction (no ``HMMA``, no ``HGMMA``); the dW kernels do
-   FFMA and hold no tensor-core instruction;
+   tensor-core instruction (no ``HMMA``, no ``HGMMA``); the bf16 dW kernel
+   runs on the warpgroup tensor cores with its A operand gathered by
+   ``ldmatrix`` (``HGMMA``, ``LDSM``); the f32 dW kernel does FFMA and
+   holds no tensor-core instruction;
 2. kernel check: the CUDA hex conv against its plain PyTorch version at
    every conv shape of the two self-play legs, plus 10x10 and 30x30
    boards in both dtypes and ragged f32 shapes (``RAGGED``: odd Cin, pixel
@@ -42,9 +44,13 @@ The training half:
    training update at B=256 (256f bf16, the flagship; 64f f32,
    ``scs_small.yaml``), the dW kernel against ``hex_conv_dw_plain`` and dX
    (the forward kernel on ``mirror_taps(W)``) against ``hex_conv_dx_plain``,
-   plus the ragged shapes ``BACKWARD_RAGGED``; each line prints kernel,
-   plain and library ms (cuDNN's ``convolution_backward`` of the dual 3x3
-   conv, ``library_backward``), the bound and the launches per update;
+   plus the ragged shapes ``BACKWARD_RAGGED`` and, for the bf16 dW
+   kernel, a 30x30 board; each line prints kernel, plain and library ms
+   (cuDNN's ``convolution_backward`` of the dual 3x3 conv,
+   ``library_backward``) as loops of calls, the dW kernel's and the
+   library's weight-grad also as replayed CUDA graphs (device time
+   without the host's rate of calls), the bound and the launches per
+   update;
 7. gradient check: one learner update of each net on the card against the
    same update on the CPU from the same weights, then the launch counts of
    one update at B=256 with the progressive loss off (27 forward + 26 dX
@@ -76,7 +82,7 @@ import time
 
 from nuzero_tpu_torch.ops.cuda.measure import (
     BACKWARD_RAGGED, CONVS_PER_EVAL, RAGGED, TRAIN_BATCH, TRAIN_ITERS, bound, card_line,
-    conv_shapes, launches_per_update, library_backward, time_ms,
+    conv_shapes, graph_ms, launches_per_update, library_backward, time_ms,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -97,7 +103,7 @@ SASS = {
     "hexconv_bf16_wgmma_kernel": (("HGMMA",), ()),
     "hexconv_f32_kernel": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA")),
     "hexconv_dw_f32_kernel": (("FFMA",), ("HMMA", "HGMMA")),
-    "hexconv_dw_bf16_kernel": (("FFMA",), ("HMMA", "HGMMA")),
+    "hexconv_dw_bf16_wgmma_kernel": (("HGMMA", "LDSM"), ()),
 }
 TRAIN_CONFIG = "configs/training/scs_contested256.yaml"
 SEARCH_CONFIG = "configs/search/scs_contested256_search.yaml"
@@ -358,7 +364,9 @@ def selfplay_leg(filters, dtype, batch):
 def backward_check(dtype, batch, rows, cols, cin, cout, gen):
     """The dW kernel and dX (the forward kernel on the mirrored taps) of one
     hex conv against their plain versions -> {"dw": (err, max|dW|, kernel ms,
-    plain ms, library ms), "dx": (...)}."""
+    plain ms, library ms, kernel graph ms, library graph ms), "dx": (...)}:
+    ms per call of a loop of calls, and per call of a replayed CUDA graph of
+    the same calls."""
     import torch
 
     from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda, hex_conv_dw_cuda
@@ -390,7 +398,10 @@ def backward_check(dtype, batch, rows, cols, cin, cout, gen):
         reps = 10
         p1, k1, l1 = time_ms(plain, reps), time_ms(kernel, reps), time_ms(library, reps)
         l2, k2, p2 = time_ms(library, reps), time_ms(kernel, reps), time_ms(plain, reps)
-        out[name] = (err, scale, (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2)
+        kg1, lg1 = graph_ms(kernel, reps), graph_ms(library, reps)
+        lg2, kg2 = graph_ms(library, reps), graph_ms(kernel, reps)
+        out[name] = (err, scale, (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2,
+                     (kg1 + kg2) / 2, (lg1 + lg2) / 2)
     return out
 
 
@@ -726,44 +737,54 @@ def main() -> int:
     # --- 6. backward kernel check, at the shapes of one training update
     dw_sums = {}
     per = launches_per_update()
+
+    def backward_line(name, dtype_name, label, res, b_ms, b_by):
+        err, scale, k_ms, p_ms, l_ms, kg_ms, lg_ms = res
+        log(f"{name} {dtype_name} {label}: max abs err {err:.3e} (max {scale:.3e}); kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms; graph: kernel "
+            f"{kg_ms:.4f} ms, library {lg_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / kg_ms:.1f}% of bound  [{card}]")
+
     for filters, dtype_name in NETS:
         dtype = getattr(torch, dtype_name)
         sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         dx_sums = dict(sums)
+        graph_sums = {"dw": [0.0, 0.0], "dx": [0.0, 0.0]}  # kernel, library
         by = {"operations": 0.0, "bytes": 0.0}
         worst = 0.0
         for i, (cin, cout, count) in enumerate(conv_shapes(filters, iterations=TRAIN_ITERS)):
             res = backward_check(dtype, TRAIN_BATCH, 5, 5, cin, cout, gen)
             b_ms, b_by = bound(dtype_name, TRAIN_BATCH, 5, 5, cin, cout)
             for name, n in (("dw", count), ("dx", 0 if i == 0 else count)):
-                err, scale, k_ms, p_ms, l_ms = res[name]
-                log(f"{name} {dtype_name} B={TRAIN_BATCH} 5x5 {cin}->{cout} (x{n} per update): "
-                    f"max abs err {err:.3e} (max {scale:.3e}); kernel {k_ms:.4f} ms, plain "
-                    f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                    f"{100 * b_ms / k_ms:.1f}% of bound  [{card}]")
+                backward_line(name, dtype_name, f"B={TRAIN_BATCH} 5x5 {cin}->{cout} (x{n} per "
+                              f"update)", res[name], b_ms, b_by)
                 total = sums if name == "dw" else dx_sums
-                for key, ms in zip(total, (k_ms, p_ms, l_ms, b_ms)):
+                for key, ms in zip(total, (*res[name][2:5], b_ms)):
                     total[key] += n * ms
+                graph_sums[name][0] += n * res[name][5]
+                graph_sums[name][1] += n * res[name][6]
             by[b_by] += count * b_ms
             worst = max(worst, res["dw"][0])
             per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], res["dx"][0])
         sums["bound_by"] = max(by, key=by.get)
         dw_sums[dtype_name] = [worst, sums]
         for name, total in (("dW", sums), ("dX", dx_sums)):
+            kg_ms, lg_ms = graph_sums[name.lower()]
             log(f"{name} {dtype_name} per {filters}f update ({per['dw' if name == 'dW' else 'dx']}"
                 f" launches): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-                f"library {total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms  [{card}]")
-    for dtype_name in ("float32", "bfloat16"):
-        for batch, rows, cols, cin, cout in BACKWARD_RAGGED:
-            res = backward_check(getattr(torch, dtype_name), batch, rows, cols, cin, cout, gen)
-            b_ms, b_by = bound(dtype_name, batch, rows, cols, cin, cout)
-            for name in ("dw", "dx"):
-                err, scale, k_ms, p_ms, l_ms = res[name]
-                log(f"{name} {dtype_name} B={batch} {rows}x{cols} {cin}->{cout} (ragged): max "
-                    f"abs err {err:.3e} (max {scale:.3e}); kernel {k_ms:.4f} ms, plain "
-                    f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            dw_sums[dtype_name][0] = max(dw_sums[dtype_name][0], res["dw"][0])
-            per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], res["dx"][0])
+                f"library {total['library_ms']:.4f} ms; graph: kernel {kg_ms:.4f} ms, library "
+                f"{lg_ms:.4f} ms; bound {total['bound_ms']:.4f} ms, "
+                f"{100 * total['bound_ms'] / kg_ms:.1f}% of bound  [{card}]")
+    ragged = [(d, shape) for d in ("float32", "bfloat16") for shape in BACKWARD_RAGGED]
+    ragged.append(("bfloat16", (64, 30, 30, 256, 138)))
+    for dtype_name, (batch, rows, cols, cin, cout) in ragged:
+        res = backward_check(getattr(torch, dtype_name), batch, rows, cols, cin, cout, gen)
+        b_ms, b_by = bound(dtype_name, batch, rows, cols, cin, cout)
+        for name in ("dw", "dx"):
+            backward_line(name, dtype_name, f"B={batch} {rows}x{cols} {cin}->{cout}", res[name],
+                          b_ms, b_by)
+        dw_sums[dtype_name][0] = max(dw_sums[dtype_name][0], res["dw"][0])
+        per_dtype[dtype_name][0] = max(per_dtype[dtype_name][0], res["dx"][0])
 
     # --- 3. network check
     for filters, dtype_name, _ in LEGS:

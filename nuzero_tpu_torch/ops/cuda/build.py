@@ -4,7 +4,9 @@ The sources under ``csrc/`` are compiled with ``nvcc`` into a shared
 library with a plain C interface and loaded through ``ctypes``.  The build
 runs at first use, from the sources in this checkout only, into
 ``_build/`` beside this file (git-ignored).  The library's file name
-carries a hash of the sources and flags, so an edited source is rebuilt.
+carries a hash of the sources, of every header under ``csrc/`` (which any
+source may include) and of the flags, so an edited source or header is
+rebuilt.
 
 Nothing here runs at import time: the CPU test suite imports every module
 and has no ``nvcc``.
@@ -40,21 +42,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, sources: tuple[str, ...]) -> str:
-    """Compile ``sources`` (file names under ``csrc/``, or absolute paths) into
-    ``_build/lib<name>-<hash>.so`` unless that file exists; returns its path."""
-    paths = [os.path.join(CSRC, s) for s in sources]
+def library_path(name: str, sources: tuple[str, ...]) -> str:
+    """``_build/lib<name>-<hash>.so``, the hash taken over the flags, the
+    ``sources`` (file names under ``csrc/``, or absolute paths) and every
+    ``csrc/*.cuh`` header."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in [os.path.join(CSRC, n) for n in (*sources, *headers)]:
+        digest.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             digest.update(f.read())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str, sources: tuple[str, ...]) -> str:
+    """Compile ``sources`` (file names under ``csrc/``, or absolute paths)
+    into ``library_path(name, sources)`` unless that file exists; returns
+    its path.  Sources include headers from ``csrc/``."""
+    out = library_path(name, sources)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+    paths = [os.path.join(CSRC, s) for s in sources]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *paths]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -85,10 +97,11 @@ def hexconv_library(source: str = "hexconv.cu") -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def hexconv_dw_library() -> ctypes.CDLL:
-    """The hex conv's weight-gradient kernels (``csrc/hexconv_dw.cu``),
-    built on first call."""
-    lib = ctypes.CDLL(build("hexconv_dw", ("hexconv_dw.cu",)))
+def hexconv_dw_library(source: str = "hexconv_dw.cu") -> ctypes.CDLL:
+    """The hex conv's weight-gradient kernels, built on first call;
+    ``source`` is ``csrc/hexconv_dw.cu`` unless another file with the same
+    C interface is named (``tune_dw.py`` times such variants)."""
+    lib = ctypes.CDLL(build("hexconv_dw", (source,)))
     fn = lib.hexconv_dw
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -96,6 +109,10 @@ def hexconv_dw_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.hexconv_dw_max_width.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hexconv_dw_max_width.restype = ctypes.c_int
+    lib.hexconv_dw_blocks_per_slice.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.hexconv_dw_blocks_per_slice.restype = ctypes.c_int
     return lib
 
 

@@ -25,8 +25,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNELS = {torch.float32: "hexconv_f32_kernel", torch.bfloat16: "hexconv_bf16_wgmma_kernel"}
 #: The weight-gradient kernel (``csrc/hexconv_dw.cu``) each dtype launches;
 #: each launch is followed by the reduce kernel that adds its slices.
-DW_KERNELS = {torch.float32: "hexconv_dw_f32_kernel", torch.bfloat16: "hexconv_dw_bf16_kernel"}
-#: The dW kernel's tile (rows of dW x output channels) and pixel chunk.
+DW_KERNELS = {torch.float32: "hexconv_dw_f32_kernel",
+              torch.bfloat16: "hexconv_dw_bf16_wgmma_kernel"}
+#: The f32 dW kernel's tile (rows of dW x output channels); the pixel step
+#: of both dW kernels' slices.
 DW_TILE, DW_CHUNK = 64, 16
 
 #: Launches per device kernel since the last ``reset_launch_count()``.
@@ -81,8 +83,9 @@ def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@functools.lru_cache(maxsize=None)
 def dw_slices(m: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
-    """(slices, pixels per slice) of the dW kernel's grid for M = ``m``
+    """(slices, pixels per slice) of the f32 dW kernel's grid for M = ``m``
     pixels: enough slices that the tiles of dW make about eight blocks per
     SM, each slice at least 8 chunks long, every slice non-empty."""
     tiles = math.ceil(7 * cin / DW_TILE) * math.ceil(cout / DW_TILE)
@@ -93,8 +96,35 @@ def dw_slices(m: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
+def dw_wgmma_slices(m: int, tiles: int, sms: int) -> tuple[int, int]:
+    """(slices, pixels per slice) of the bf16 dW kernel's grid for M = ``m``
+    pixels and ``tiles`` blocks per slice (``hexconv_dw_blocks_per_slice``).
+    A block takes a whole SM, so the slices are the shortest whole numbers
+    of 16-pixel steps that keep the grid in one wave of ``sms`` blocks (one
+    slice where the tiles alone fill the card), none empty.  Each slice
+    costs a [7*Cin, Cout] f32 partial in the workspace."""
+    steps = math.ceil(m / DW_CHUNK)
+    want = max(1, min(sms // tiles, steps))
+    per_slice = math.ceil(steps / want) * DW_CHUNK
+    return math.ceil(m / per_slice), per_slice
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_bf16_blocks(cin: int, cout: int) -> int:
+    return hexconv_dw_library().hexconv_dw_blocks_per_slice(cin, cout, _DTYPES[torch.bfloat16])
+
+
+def dw_plan(m: int, cin: int, cout: int, dtype: torch.dtype, index: int) -> tuple[int, int]:
+    """(slices, pixels per slice) of the dW kernel of ``dtype`` on card
+    ``index``."""
+    if dtype == torch.bfloat16:
+        return dw_wgmma_slices(m, _dw_bf16_blocks(cin, cout), _sm_count(index))
+    return dw_slices(m, cin, cout, _sm_count(index))
 
 
 def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -113,15 +143,21 @@ def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     M = B * H * W
     if M * max(Cin, Cout) >= 2**31 or 7 * Cin * max(Cout, 1) >= 2**31:
         raise ValueError("hex_conv_dw_cuda shapes exceed 32-bit indexing")
-    slices, per_slice = dw_slices(M, Cin, Cout, _sm_count(x.device.index))
+    slices, per_slice = dw_plan(M, Cin, Cout, x.dtype, x.device.index)
     part = torch.empty((slices, 7 * Cin, Cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((7, Cin, Cout), dtype=x.dtype, device=x.device)
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    err = hexconv_dw_library().hexconv_dw(
+    lib = hexconv_dw_library()
+    err = lib.hexconv_dw(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
         B, H, W, Cin, Cout, _DTYPES[x.dtype], slices, per_slice, stream,
     )
     if err != 0:
+        cap = lib.hexconv_dw_max_width(Cout, _DTYPES[x.dtype])
+        if 0 <= cap < W:
+            raise RuntimeError(
+                f"hexconv_dw launch failed: a board {W} wide is past the {DW_KERNELS[x.dtype]}'s "
+                f"shared-memory cap (boards up to {cap} wide at Cout {Cout})")
         raise RuntimeError(f"hexconv_dw launch failed: CUDA error {err}")
     launch_count[DW_KERNELS[x.dtype]] += 1
     return dw

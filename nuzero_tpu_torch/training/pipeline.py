@@ -312,14 +312,20 @@ class AlphaZero:
         checkpoints (ref ``AlphaZero.py:110-146`` + ``ReplayBuffer.py:80-104``)
         -> (state, step)."""
         assert self.run_dir is not None
+        ckpt = self.cfg.checkpoint
         template = self.learner.init_state(torch.Generator(device=self.device).manual_seed(0))
-        target = {"params": template.params, "opt_state": template.opt_state, "step": 0,
-                  "buffer": {f.name: getattr(self.buffer, f.name)
-                             for f in dataclasses.fields(self.buffer)}}
+        target = {"params": template.params, "opt_state": template.opt_state, "step": 0}
+        # The buffer is restored, and its shapes checked, only when it is
+        # both saved and asked for (nuzero_tpu/training/pipeline.py:974-975):
+        # a resume without it may change the window, the trajectory length
+        # or the action count.
+        with_buffer = self.cfg.saving.save_buffer and ckpt.load_buffer
+        if with_buffer:
+            target["buffer"] = {f.name: getattr(self.buffer, f.name)
+                                for f in dataclasses.fields(self.buffer)}
         tree, step = restore_checkpoint(
             os.path.join(self.run_dir, "checkpoints"), step, target, device=self.device)
-        ckpt = self.cfg.checkpoint
-        if "buffer" in tree and ckpt.load_buffer:
+        if with_buffer and "buffer" in tree:
             self.buffer = replay_lib.ReplayBuffer(**tree["buffer"])
         elif ckpt.load_buffer:
             raise NotImplementedError(

@@ -129,10 +129,19 @@ def _grad_inputs(b, h, w, cin, cout, dtype, seed):
 # another order.
 _BACKWARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
+# (B, H, W, Cin, Cout) of dW cases beyond BACKWARD_RAGGED: every conv shape
+# of one 256-filter update (B=256 on 5x5), then the bf16 kernel's edges:
+# Cin and Cout off multiples of 8 (2-byte and 4-byte copies, padded M and
+# N), fewer pixels than one 16-pixel step, odd and even widths, a 30x30
+# board, Cin past two 64-channel blocks with a ragged last one.
+DW_CASES = ([(256, 5, 5, cin, cout) for cin, cout, _ in conv_shapes(256, iterations=4)]
+            + [(1, 2, 5, 21, 13), (3, 7, 9, 37, 70), (2, 6, 8, 150, 138), (5, 4, 4, 8, 1),
+               (2, 30, 30, 256, 138), (3, 9, 10, 342, 21), (2, 5, 6, 100, 250)])
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,cin,cout", BACKWARD_RAGGED)
+@pytest.mark.parametrize("b,h,w,cin,cout", list(BACKWARD_RAGGED) + DW_CASES)
 def test_dw_kernel_matches_plain_on_card(cuda_card, dtype, b, h, w, cin, cout):
     """The dW kernel against ``hex_conv_dw_plain`` within the dtype's
     tolerance of max|dW| (``_BACKWARD_TOL``), and the same bits on a second
@@ -147,6 +156,31 @@ def test_dw_kernel_matches_plain_on_card(cuda_card, dtype, b, h, w, cin, cout):
     assert torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _BACKWARD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dw_bf16_kernel_at_the_widest_board_that_fits(cuda_card):
+    """The bf16 dW kernel's three halo slabs (128 + 2W + 2 rows of 144 B)
+    fit its shared memory beside the dY tiles and tap tables up to W = 134
+    at Cout 64: the widest board runs and matches the plain version."""
+    cap = hexconv_kernel.hexconv_dw_library().hexconv_dw_max_width(64, 1)
+    assert cap == 134
+    x, _, dy = _grad_inputs(1, 2, cap, 64, 64, torch.bfloat16, seed=29)
+    got = hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    want = hexconv.hex_conv_dw_plain(x, dy)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _BACKWARD_TOL[torch.bfloat16] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dw_bf16_kernel_raises_past_the_shared_memory_cap(cuda_card):
+    """One column past the cap the bf16 dW kernel refuses the launch: the
+    wrapper raises an error naming the cap, and nothing is counted."""
+    x, _, dy = _grad_inputs(1, 2, 135, 64, 64, torch.bfloat16, seed=29)
+    hexconv_kernel.reset_launch_count()
+    with pytest.raises(RuntimeError, match="shared-memory cap .boards up to 134 wide"):
+        hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    assert sum(hexconv_kernel.launch_count.values()) == 0
 
 
 @pytest.mark.cuda

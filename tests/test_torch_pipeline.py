@@ -98,6 +98,32 @@ def test_load_and_continue(tmp_path, keep_scheduler):
     assert [r["step"] for r in az.journal.load()] == [1, 2, 3]
 
 
+def test_resume_with_another_window_without_the_buffer(tmp_path):
+    """A run saved with one replay window resumes with another and
+    ``load_buffer: false`` (the JAX pipeline resumes it: the buffer is not
+    part of the restore target then): params and optimizer state restore
+    exactly, the buffer keeps the new window and the run goes on."""
+    first = _coordinator(str(tmp_path), _config())
+    saved = first.run(seed=0)
+    cfg = _config(steps=3, learning=LearningConfig(replay_window_size=32, batch_size=8,
+                                                   num_samples=2),
+                  checkpoint=CheckpointConfig(load_buffer=False, keep_scheduler=True))
+    az = _coordinator(str(tmp_path), cfg)
+    state, step = az.load("auto")
+    assert step == 2 and state.step == 4
+    for k, v in saved.params.items():
+        torch.testing.assert_close(state.params[k], v, rtol=0, atol=0)
+        for moment in ("mu", "nu"):
+            torch.testing.assert_close(state.opt_state[moment][k], saved.opt_state[moment][k],
+                                       rtol=0, atol=0)
+    assert state.opt_state["schedule_count"] == saved.opt_state["schedule_count"] == 4
+    assert state.opt_state["count"] == saved.opt_state["count"]
+    assert az.buffer.states.shape[0] == 32 and az.buffer.games_added == 0
+    state = az.run(seed=1, initial_state=state, starting_step=step)
+    assert state.step == 6 and az.buffer.games_added > 0
+    assert [r["step"] for r in az.journal.load()] == [1, 2, 3]
+
+
 def test_epochs_sweep_each_position_at_most_once(tmp_path, monkeypatch):
     seen = []
     gather = pipeline.replay_lib.gather

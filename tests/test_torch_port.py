@@ -209,16 +209,17 @@ def test_chip_smoke_sass_counts():
 
 
 def test_chip_smoke_checks_every_kernel():
-    """Phase 1 holds every kernel to a SASS rule (the dW kernels: FFMA, no
-    tensor-core instruction), and phase 2's ragged f32 cases cover odd Cin,
+    """Phase 1 holds every kernel to a SASS rule (the f32 dW kernel: FFMA,
+    no tensor-core instruction; the bf16 dW kernel: HGMMA fed by ldmatrix),
+    and phase 2's ragged f32 cases cover odd Cin,
     pixel counts off the block size, odd and even widths and Cout of 1 and
     42."""
     from nuzero_tpu_torch.ops.cuda.hexconv_kernel import DW_KERNELS, KERNELS
 
     assert set(chip_smoke.SASS) == {*KERNELS.values(), *DW_KERNELS.values()}
     assert chip_smoke.SASS["hexconv_f32_kernel"] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
-    for name in DW_KERNELS.values():
-        assert chip_smoke.SASS[name] == (("FFMA",), ("HMMA", "HGMMA"))
+    assert chip_smoke.SASS[DW_KERNELS[torch.float32]] == (("FFMA",), ("HMMA", "HGMMA"))
+    assert chip_smoke.SASS[DW_KERNELS[torch.bfloat16]] == (("HGMMA", "LDSM"), ())
     ragged = chip_smoke.RAGGED
     assert any(cin % 2 for _, _, _, cin, _ in ragged)
     assert any((b * h * w) % 64 for b, h, w, _, _ in ragged)
@@ -278,3 +279,47 @@ def test_dw_slices_cover_every_pixel():
         slices, per = dw_slices(m, cin, cout, 132)
         assert per % 16 == 0 and slices * per >= m > (slices - 1) * per
     assert dw_slices(6400, 342, 256, 132) == (7, 928)  # 152 tiles x 7 = 1064 blocks
+
+
+@pytest.mark.parametrize("m,tiles", [
+    (6400, 8), (6400, 24), (6400, 16), (6400, 12), (6400, 3), (6400, 6), (6400, 2), (6400, 1),
+    (10, 1), (16, 1), (17, 6), (1800, 12), (57600, 1), (6400, 132), (6400, 1024),
+])
+def test_dw_wgmma_slices_cover_every_pixel(m, tiles):
+    """The bf16 dW kernel's grid for ``tiles`` blocks per slice (the 256f
+    update's 8, 24, 16, 12, 3, 12, 6, 2 and 1, then edges): slices of whole
+    16-pixel steps that cover every pixel once, none empty, and the
+    shortest such slices that keep the blocks in one wave of 132 SMs."""
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import dw_wgmma_slices
+
+    slices, per = dw_wgmma_slices(m, tiles, 132)
+    starts = range(0, slices * per, per)
+    assert per % 16 == 0 and per > 0
+    assert all(start < m for start in starts) and slices * per >= m  # none empty, all covered
+    steps, per_steps = -(-m // 16), per // 16
+    wave = max(132, tiles)
+    assert tiles * slices <= wave
+    shorter = -(-steps // (per_steps - 1)) if per_steps > 1 else None
+    assert shorter is None or tiles * shorter > wave, "a shorter slice would still fit one wave"
+
+
+def test_build_digest_follows_the_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed on its source and on every header under
+    csrc/: editing either gives another file name, so no stale library is
+    loaded; other files leave it alone."""
+    from nuzero_tpu_torch.ops.cuda import build
+
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("a\n")
+    first = build.library_path("k", ("k.cu",))
+    assert first == build.library_path("k", ("k.cu",))
+    (tmp_path / "notes.txt").write_text("b\n")
+    assert build.library_path("k", ("k.cu",)) == first
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    second = build.library_path("k", ("k.cu",))
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert build.library_path("k", ("k.cu",)) not in (first, second)
+    assert os.path.dirname(first) == build.BUILD_DIR
