@@ -12,8 +12,9 @@ Phases, each of which must pass:
    the CUDA cores, fed by ``cp.async`` (``LDGSTS``), and holds no
    tensor-core instruction (no ``HMMA``, no ``HGMMA``); the bf16 dW kernel
    runs on the warpgroup tensor cores with its A operand gathered by
-   ``ldmatrix`` (``HGMMA``, ``LDSM``); the f32 dW kernel does FFMA and
-   holds no tensor-core instruction;
+   ``ldmatrix`` (``HGMMA``, ``LDSM``); the f32 dW kernel, like the f32
+   forward, does FFMA fed by ``cp.async`` (``LDGSTS``) and holds no
+   tensor-core instruction;
 2. kernel check: the CUDA hex conv against its plain PyTorch version at
    every conv shape of the two self-play legs, plus 10x10 and 30x30
    boards in both dtypes and ragged f32 shapes (``RAGGED``: odd Cin, pixel
@@ -45,7 +46,8 @@ The training half:
    ``scs_small.yaml``), the dW kernel against ``hex_conv_dw_plain`` and dX
    (the forward kernel on ``mirror_taps(W)``) against ``hex_conv_dx_plain``,
    plus the ragged shapes ``BACKWARD_RAGGED`` and, for the bf16 dW
-   kernel, a 30x30 board; each line prints kernel, plain and library ms
+   kernel, a 30x30 board (the f32 dW within 1e-5 of max|dW|, the bf16
+   within 1e-2); each line prints kernel, plain and library ms
    (cuDNN's ``convolution_backward`` of the dual 3x3 conv,
    ``library_backward``) as loops of calls, the dW kernel's and the
    library's weight-grad also as replayed CUDA graphs (device time
@@ -54,7 +56,10 @@ The training half:
 7. gradient check: one learner update of each net on the card against the
    same update on the CPU from the same weights, then the launch counts of
    one update at B=256 with the progressive loss off (27 forward + 26 dX
-   launches of the forward kernel, 27 of the dW kernel);
+   launches of the forward kernel, 27 of the dW kernel); then that 64f f32
+   update (``scs_small.yaml``'s width) timed over 10 updates and profiled
+   once (device busy time, idle share, hex-conv forward, dX and dW device
+   time);
 8. training run: ``AlphaZero(...).run()`` on the flagship configs
    (``scs_contested256.yaml``, ``scs_contested256_search.yaml``) loaded by
    the port's schemas at full network and learner width, cut as
@@ -102,7 +107,7 @@ NETS = ((256, "bfloat16"), (64, "float32"))
 SASS = {
     "hexconv_bf16_wgmma_kernel": (("HGMMA",), ()),
     "hexconv_f32_kernel": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA")),
-    "hexconv_dw_f32_kernel": (("FFMA",), ("HMMA", "HGMMA")),
+    "hexconv_dw_f32_kernel": (("FFMA", "LDGSTS"), ("HMMA", "HGMMA")),
     "hexconv_dw_bf16_wgmma_kernel": (("HGMMA", "LDSM"), ()),
 }
 TRAIN_CONFIG = "configs/training/scs_contested256.yaml"
@@ -247,6 +252,19 @@ def network_check(filters, dtype):
             raise AssertionError(f"{filters}f {name}: card vs CPU err {err} > {rel * scale}")
 
 
+def union_ms(intervals) -> float:
+    """ms covered by the union of (start, stop) intervals in microseconds:
+    device time of kernels that may overlap (the f32 dW's reduce kernel is
+    a programmatic dependent launch, running beside the main kernel's
+    end)."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def profile_move(step, variables, sp):
     """One move under torch.profiler -> (seconds, device kernels, device busy
     ms as the union of kernel intervals, hex-conv ms, hex-conv launches)."""
@@ -265,13 +283,9 @@ def profile_move(step, variables, sp):
         prof.export_chrome_trace(trace)
         with open(trace) as f:
             kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
+    busy = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     hexconv = [e["dur"] for e in kernels if "hexconv" in e["name"]]
-    return seconds, len(kernels), busy / 1e3, sum(hexconv) / 1e3, len(hexconv)
+    return seconds, len(kernels), busy, sum(hexconv) / 1e3, len(hexconv)
 
 
 def selfplay_leg(filters, dtype, batch):
@@ -382,9 +396,10 @@ def backward_check(dtype, batch, rows, cols, cin, cout, gen):
         "dx": (lambda: hex_conv_cuda(dy, w_mirror), lambda: hex_conv_dx_plain(dy, w), lib_dx),
     }
     lib_out = dict(zip(("dx", "dw"), to_hex(lib_dx(), lib_dw())))
-    tol = (1e-4 if dtype == torch.float32 else 1e-2)
     out = {}
     for name, (kernel, plain, library) in runs.items():
+        # f32: dW within 1e-5 of max|dW| (fixed-order f32 sums), dX 1e-4.
+        tol = (1e-2 if dtype != torch.float32 else 1e-5 if name == "dw" else 1e-4)
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -535,11 +550,41 @@ def update_launch_check(filters, dtype):
     return counts
 
 
+def update_profile(filters, dtype, card):
+    """The learner update of ``update_launch_check`` (B=256, 4 iterations,
+    alpha 0), timed over ``TIMED_UPDATES`` updates after one warm-up, then
+    one more under torch.profiler: device busy time, idle share and the
+    hex conv's forward, dX and dW device time."""
+    import torch
+
+    env = make_env("cuda")
+    learner = learner_for(make_net(env, filters, dtype), 0.0)
+    state = learner.init_state(torch.Generator(device="cuda").manual_seed(0))
+    batch = random_batch(env, TRAIN_BATCH, torch.Generator().manual_seed(1), "cuda")
+    times = []
+    for _ in range(1 + TIMED_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = learner.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[1:]
+    secs, n_kernels, busy, ms = profile_update(learner, state, batch, None)
+    med = statistics.median(times)
+    log(f"learner update {filters}f {dtype} B={TRAIN_BATCH}: median {med:.2f} ms of "
+        f"{TIMED_UPDATES} (min {min(times):.2f}, max {max(times):.2f})  [{card}]")
+    log(f"profile of one {filters}f update: {secs * 1e3:.2f} ms under the profiler, {n_kernels} "
+        f"device kernels, busy {busy:.2f} ms (idle {100 * (1 - busy / med):.1f}% of a {med:.2f} "
+        f"ms update); hex conv forward {ms['forward']:.2f} ms, dX {ms['dx']:.2f} ms, dW "
+        f"{ms['dw']:.2f} ms ({100 * sum(ms.values()) / busy:.1f}% of busy)  [{card}]")
+
+
 def profile_update(learner, state, batch, rng):
     """One learner update under torch.profiler -> (seconds, device kernels,
-    device busy ms, hex-conv forward, dX and dW device ms).  dW runs before dX in the hex
-    conv's backward, so forward-kernel launches after the first dW launch
-    are dX."""
+    device busy ms, hex-conv forward, dX and dW device ms), each the union
+    of its kernels' intervals.  dW runs before dX in the hex conv's
+    backward, so forward-kernel launches after the first dW launch are
+    dX."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -553,21 +598,15 @@ def profile_update(learner, state, batch, rng):
         prof.export_chrome_trace(trace)
         with open(trace) as f:
             kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    kernels.sort(key=lambda e: e["ts"])
-    busy, end = 0.0, float("-inf")
-    for e in kernels:
-        stop = e["ts"] + e["dur"]
-        if stop > end:
-            busy += stop - max(e["ts"], end)
-            end = stop
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels]
     dw_start = min((e["ts"] for e in kernels if "hexconv_dw" in e["name"]), default=float("inf"))
-    ms = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
-    for e in kernels:
+    parts = {"forward": [], "dx": [], "dw": []}
+    for e, span in zip(kernels, spans):
         if "hexconv_dw" in e["name"]:
-            ms["dw"] += e["dur"] / 1e3
+            parts["dw"].append(span)
         elif "hexconv" in e["name"]:
-            ms["dx" if e["ts"] > dw_start else "forward"] += e["dur"] / 1e3
-    return seconds, len(kernels), busy / 1e3, ms
+            parts["dx" if e["ts"] > dw_start else "forward"].append(span)
+    return seconds, len(kernels), union_ms(spans), {k: union_ms(v) for k, v in parts.items()}
 
 
 def training_run(card):
@@ -795,6 +834,7 @@ def main() -> int:
     for filters, dtype_name in NETS:
         grad_check(filters, getattr(torch, dtype_name))
         update_counts[dtype_name] = update_launch_check(filters, getattr(torch, dtype_name))
+    update_profile(64, torch.float32, card)
 
     # --- 4./5. self-play legs
     kernels = []

@@ -113,6 +113,10 @@ def hexconv_dw_library(source: str = "hexconv_dw.cu") -> ctypes.CDLL:
     lib.hexconv_dw_max_width.restype = ctypes.c_int
     lib.hexconv_dw_blocks_per_slice.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.hexconv_dw_blocks_per_slice.restype = ctypes.c_int
+    lib.hexconv_dw_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hexconv_dw_partials.restype = ctypes.c_int
+    lib.hexconv_dw_max_clusters.argtypes = [ctypes.c_int] * 4
+    lib.hexconv_dw_max_clusters.restype = ctypes.c_int
     return lib
 
 

@@ -403,17 +403,6 @@ struct Params {
   int slab_rows;   // BM + 2W + 2
 };
 
-// Copy SIZE bytes (4, 8 or 16) global -> shared; bytes past `valid` are zeroed.
-template <int SIZE>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int valid) {
-  if constexpr (SIZE == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(SIZE), "r"(valid));
-}
-
 // One chunk of the halo slab: flat pixels [p0, p0 + slab_rows), channels
 // [c0, c0 + kc4) of x (kc4: the chunk's channels rounded up to 4), zero
 // past Cin.  Rows off [0, M) are left unwritten: only off-board taps point
@@ -428,7 +417,7 @@ __device__ __forceinline__ void load_slab(const Params& p, float* dst0, int c0, 
     if (ch >= kc4 || q < 0 || q >= p.M) continue;
     const float* src = p.x + (int64_t)q * p.Cin + c0 + ch;
     const int valid = ch < kc ? min(SIZE, (kc - ch) * 4) : 0;
-    cp_async<SIZE>(hop::smem_u32(dst0 + r * SP + ch), valid ? src : p.x, valid);
+    hop::cp_async<SIZE>(hop::smem_u32(dst0 + r * SP + ch), valid ? src : p.x, valid);
   }
 }
 
@@ -451,13 +440,13 @@ __device__ __forceinline__ void load_b(const Params& p, float* dst0, int t, int 
       const int k = k0 + i * STEP;
       if (k >= kc4) break;
       const int valid = c0 + k < p.Cin ? vcol : 0;
-      cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
+      hop::cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
     }
   } else {
     for (int u = threadIdx.x; u < kc4 * UPR; u += THREADS) {
       const int k = u / UPR, n = (u % UPR) * F, col = n0 + n;
       const int valid = c0 + k < p.Cin && col < p.N ? min(SIZE, (p.N - col) * 4) : 0;
-      cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
+      hop::cp_async<SIZE>(hop::smem_u32(dst0 + k * BN + n), valid ? src0 + k * p.N + n : p.wt, valid);
     }
   }
 }
@@ -638,13 +627,6 @@ int launch(const Params& p, cudaStream_t s) {
 }
 
 }  // namespace f32
-
-// Bytes per copy of rows of `channels` f32 values starting at `p`.
-int copy_width_f32(const void* p, int channels) {
-  if (channels % 4 == 0 && aligned(p, 16)) return 16;
-  if (channels % 2 == 0 && aligned(p, 8)) return 8;
-  return 4;
-}
 
 }  // namespace
 

@@ -15,130 +15,397 @@
 // What bounds it on an H100: at one training update's shapes (B=256, 5x5,
 // M = 6400) the wide convs do ~2*6400 = 12,800 operations per element of
 // dW, far above either ridge point: it is bound by operations.  Two
-// kernels, one per dtype, each summing pixel slices into an f32 workspace
-// [slices, 7*Cin, Cout] that a second kernel (hexconv_dw_reduce_kernel)
-// adds in slice order and rounds once to the output dtype.  No float
-// atomics: the same inputs give the same bits on every run.
+// kernels, one per dtype, each summing pixel slices in f32 into a
+// workspace of partials [partials, 7*Cin, Cout] that a second kernel
+// (hexconv_dw_reduce_kernel) adds in order and rounds once to the output
+// dtype.  No float atomics: the same inputs give the same bits on every
+// run.
 //
-// * f32 (hexconv_dw_f32_kernel) stays on the CUDA cores (FFMA), so f32
-//   results keep f32 rounding (see the note at the kernel);
+// * f32 (f32::hexconv_dw_f32_kernel) stays on the CUDA cores (FFMA), so
+//   f32 results keep f32 rounding; thread-block clusters add up to 8
+//   slices before the workspace, and one cluster writes dW itself (see
+//   the note at the kernel);
 // * bf16 (hop::hexconv_dw_bf16_wgmma_kernel) puts the product on Hopper's
 //   warpgroup tensor cores (see the note at the kernel).
+
+#include <cooperative_groups.h>
 
 #include "hopper.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------
-// f32: FFMA on the CUDA cores, f32 x f32 -> f32.
-//   * grid (7*Cin / BR) x (Cout / BC) x slices: each block computes one
-//     BR x BC tile of dW over one slice of the pixels, so that the narrow
-//     outputs still fill the card;
-//   * per chunk of MC pixels the block gathers the tap rows of its BR rows
-//     of A^T into shared memory once (a table of each pixel's 7 neighbour
-//     indices, -1 off the board, makes the parity shift and the zero fill
-//     an index) and the matching MC x BC tile of dY, then each thread adds
-//     a TR x TC outer product per pixel from float4 shared loads.
+// f32: FFMA on the CUDA cores, f32 x f32 -> f32.  Per block: CK = 32
+// input channels ci of x, BN output channels of dY, all 7 taps and one
+// slice of the pixels, so that x and dY are each read once per chunk:
+//
+//   * the halo slab: the taps of pixels [m0, m0+P) all lie in the flat
+//     pixel range [m0-W-1, m0+P+W+1), so the block copies that range of
+//     its CK channels of x into shared memory, and the P x BN tile of dY
+//     beside it, by cp.async (16, 8 or 4 bytes by the rows' alignment);
+//     a table of each pixel's 7 tap rows, built per chunk, makes the
+//     parity shift and the zero fill a row offset, with a zero row for
+//     off-board taps and the pixels past the slice.  This is the layout of
+//     the f32 forward (hexconv.cu) and of the bf16 dW below;
+//   * a ring of STAGES chunks: chunk c+STAGES-1's copies and table are
+//     issued right after the one barrier of chunk c, and land while chunk
+//     c's products run;
+//   * the register tile: each thread accumulates TR = 4 channels x TC = 4
+//     output channels for all 7 taps (112 f32 sums).  Per pixel it reads
+//     the pixel's 7 tap offsets (two int4), one float4 of dY and one
+//     float4 of x per tap, 10 shared loads for 112 FFMA;
+//   * KS = 2 groups of threads hold the same CK x BN tile and take
+//     alternate pixels of each chunk (a K split inside the block), so that
+//     a block's tile, which the cluster reduction moves between SMs, is
+//     half the registers' worth of partial sums; the groups' tiles are
+//     added in shared memory first;
+//   * the reduction over the pixels: each thread sums its pixels in order;
+//     the blocks of up to 8 consecutive slices of one (CK, BN) tile form a
+//     thread-block cluster and add their tiles in slice order through
+//     distributed shared memory, each block taking one share of the tile;
+//     only the cluster's sum leaves the SM: into dW where one cluster
+//     covers all slices, else into the workspace, whose partials
+//     hexconv_dw_reduce_kernel adds in order.  No float atomics.  The
+//     reduce kernel is launched as a programmatic dependent of the main
+//     one, so its launch overlaps the main kernel's epilogue.
+//
+// What bounds it: at 5x5 boards, fixed costs as much as the products.  A
+// 32 x 64 tile does 7*32*64 = 14,336 FFMA per pixel against one row of x
+// and one of dY copied, so the main loop is bound by issuing FFMA and the
+// shared loads that feed them (about 60% of the FFMA peak on the card);
+// but a block sees only a few chunks (the plan, hexconv_kernel.py's
+// dw_slices, keeps one wave of blocks whose clusters the card holds at
+// once), and each pays its first chunk's copies, two cluster barriers, the
+// exchange of its 56 KB tile and the reduce kernel: about 10 of a 64->64
+// conv's 22 us (tune_dw.py's timeline, PERF.md).
 // ---------------------------------------------------------------------
+namespace f32 {
 
-constexpr int BR = 64;        // rows of dW (t*Cin + ci) per block
-constexpr int BC = 64;        // output channels per block
-constexpr int MC = 16;        // pixels per shared-memory chunk
-constexpr int THREADS = 256;
-constexpr int TR = 4;         // rows per thread
-constexpr int TC = 4;         // output channels per thread
-constexpr int LOAD_ROWS = THREADS / BR;  // chunk pixels loaded per pass
-static_assert(BR == BC, "a thread loads one row of A^T and one column of dY");
-static_assert((BR / TR) * (BC / TC) == THREADS, "one TR x TC tile per thread");
-static_assert(MC % LOAD_ROWS == 0 && MC * 7 <= THREADS, "whole load passes, one tap index a thread");
+constexpr int KS = 2;           // thread groups of a block, splitting each chunk's pixels
+constexpr int CK = 64 / KS;     // input channels per block
+constexpr int TR = 4;           // input channels per thread
+constexpr int TC = 4;           // output channels per thread: one float4 of dY
+constexpr int P = 16 * KS;      // pixels per chunk: 16 per group
+constexpr int STAGES = 2;       // chunks in flight
+constexpr int TBL = 8;          // tap-table ints per pixel (7 taps, padded)
+constexpr int MAX_CLUSTER = 8;  // blocks per cluster (the portable maximum)
+static_assert(CK % TR == 0 && TBL == 8, "whole thread rows; a pixel's taps are two int4");
+
+template <int BN>
+struct Cfg {
+  static constexpr int COLS = BN / TC;                  // threads along Cout
+  static constexpr int GROUP = (CK / TR) * COLS;        // threads of one group
+  static constexpr int THREADS = KS * GROUP;
+  static constexpr int TILE4 = 7 * CK * BN / 4;         // float4s of a block's tile
+  static_assert(BN % TC == 0 && THREADS <= 1024, "tile shape");
+};
 
 struct Params {
   const float* x;   // [M, Cin]
   const float* dy;  // [M, Cout]
-  float* part;      // [slices, 7*Cin, Cout]
-  int M, H, W, Cin, Cout, K;  // K = 7*Cin
-  int slice;        // pixels per slice, a multiple of MC
+  float* out;       // dW [7*Cin, Cout] (one cluster), else [slices / cluster, 7*Cin, Cout]
+  int M, H, W, Cin, Cout;
+  int slice;        // pixels per slice, a multiple of 16
+  int cluster;      // blocks per cluster along the slices
+  int va, vd;       // bytes per copy of x rows and dY rows: 16, 8 or 4
+  int vo;           // 1 where rows of dW take float4 stores (Cout % 4 == 0)
+  int slab_rows;    // P + 2W + 2
 };
 
-__global__ void __launch_bounds__(THREADS) hexconv_dw_f32_kernel(const Params p) {
-  __shared__ __align__(16) float As[MC][BR];
-  __shared__ __align__(16) float Ds[MC][BC];
-  __shared__ int nbr[MC][7];
-  const float* x = p.x;
-  const float* dy = p.dy;
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * BR, c0 = blockIdx.y * BC;
-  const int m_begin = blockIdx.z * p.slice;
-  const int m_end = min(p.M, m_begin + p.slice);
+// Floats of one ring stage: the slab and its zero row, the dY tile, the
+// tap table.
+__host__ __device__ constexpr int stage_floats(int bn, int slab_rows) {
+  return (slab_rows + 1) * CK + P * bn + P * TBL;
+}
+// The ring, or in the epilogue the KS groups' 7 x CK x BN tiles, whichever
+// is larger.
+constexpr int smem_bytes(int bn, int slab_rows) {
+  return 4 * (STAGES * stage_floats(bn, slab_rows) > KS * 7 * CK * bn
+                  ? STAGES * stage_floats(bn, slab_rows) : KS * 7 * CK * bn);
+}
 
-  // The row of A^T and the column of dY this thread loads: fixed over chunks.
-  const int lane_rc = tid % BR;
-  const int load_k = tid / BR;
-  const int row = r0 + lane_rc;
-  const bool row_ok = row < p.K;
-  const int tap = row_ok ? row / p.Cin : 0;
-  const int ci = row_ok ? row - tap * p.Cin : 0;
-  const int col = c0 + lane_rc;
-  const bool col_ok = col < p.Cout;
-  // The TR x TC tile this thread accumulates.
-  const int ty = tid / (BC / TC), tx = tid % (BC / TC);
-
-  float acc[TR][TC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = m_begin; m0 < m_end; m0 += MC) {
-    if (tid < MC * 7) {
-      const int k = tid / 7, t = tid - (tid / 7) * 7;
-      const int m = m0 + k;
-      int idx = -1;
-      if (m < m_end) {
-        const int w = m % p.W, hw = m / p.W;
-        const int h = hw % p.H, b = hw / p.H;
-        const int hh = h + kDr[w & 1][t], ww = w + kDc[w & 1][t];
-        if (hh >= 0 && hh < p.H && ww >= 0 && ww < p.W) idx = (b * p.H + hh) * p.W + ww;
-      }
-      nbr[k][t] = idx;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int pass = 0; pass < MC / LOAD_ROWS; ++pass) {
-      const int k = load_k + pass * LOAD_ROWS;
-      const int idx = nbr[k][tap];
-      As[k][lane_rc] = (row_ok && idx >= 0) ? x[(int64_t)idx * p.Cin + ci] : 0.f;
-      const int m = m0 + k;
-      Ds[k][lane_rc] = (col_ok && m < m_end) ? dy[(int64_t)m * p.Cout + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < MC; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * TR]);
-      const float4 d = *reinterpret_cast<const float4*>(&Ds[k][tx * TC]);
-      const float av[TR] = {a.x, a.y, a.z, a.w};
-      const float dv[TC] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = p.part + (int64_t)blockIdx.z * p.K * p.Cout;
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = r0 + ty * TR + i;
-    if (r >= p.K) continue;
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const int c = c0 + tx * TC + j;
-      if (c < p.Cout) out[(int64_t)r * p.Cout + c] = acc[i][j];
-    }
+// The slab of one chunk: flat pixels [p0, p0 + slab_rows), channels
+// [c0, c0 + CK) of x.  Rows off [0, M) are left unwritten (only off-board
+// taps point there, and those read the zero row), and so are the channels
+// past Cin (they feed only rows of the tile that are never stored).
+template <int THREADS, int SIZE>
+__device__ __forceinline__ void load_slab(const Params& p, float* dst, int c0, int p0) {
+  constexpr int F = SIZE / 4, UPR = CK / F;  // floats per copy, copies per row
+  const int kc = min(CK, p.Cin - c0);
+  for (int u = threadIdx.x; u < p.slab_rows * UPR; u += THREADS) {
+    const int r = u / UPR, ch = (u % UPR) * F, q = p0 + r;
+    if (ch >= kc || q < 0 || q >= p.M) continue;
+    hop::cp_async<SIZE>(hop::smem_u32(dst + r * CK + ch), p.x + (int64_t)q * p.Cin + c0 + ch,
+                        SIZE);
   }
 }
 
+// The dY tile of one chunk: dY[m0 .. m0+P)[n0 .. n0+BN), row major, zero
+// at pixels from m_end on (they meet the zero row of x, and 0 * garbage
+// could be NaN); columns past Cout are left unwritten.
+template <int BN, int THREADS, int SIZE>
+__device__ __forceinline__ void load_dy(const Params& p, float* dst, int m0, int m_end, int n0) {
+  constexpr int F = SIZE / 4, UPR = BN / F;
+  for (int u = threadIdx.x; u < P * UPR; u += THREADS) {
+    const int k = u / UPR, col = (u % UPR) * F, m = m0 + k, co = n0 + col;
+    if (co >= p.Cout) continue;
+    const bool on = m < m_end;
+    hop::cp_async<SIZE>(hop::smem_u32(dst + k * BN + col),
+                        on ? p.dy + (int64_t)m * p.Cout + co : p.dy, on ? SIZE : 0);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(Cfg<BN>::THREADS, 1) hexconv_dw_f32_kernel(const Params p) {
+  using C = Cfg<BN>;
+  extern __shared__ __align__(16) float smem[];
+  // Stage s at smem + s * stage: the slab (slab_rows rows of CK floats),
+  // its zero row, the dY tile [P][BN], the tap table [P][TBL].
+  const int stage = stage_floats(BN, p.slab_rows);
+  const int zero = p.slab_rows * CK;  // the zero row's offset in a stage
+  const int tid = threadIdx.x, g = tid / C::GROUP;
+  const int ty = (tid % C::GROUP) / C::COLS, tx = tid % C::COLS;
+  const int c0 = blockIdx.x * CK, n0 = blockIdx.y * BN;
+  const int m_begin = blockIdx.z * p.slice, m_end = min(p.M, m_begin + p.slice);
+  const int chunks = (m_end - m_begin + P - 1) / P;
+  const int W = p.W;
+
+  for (int u = tid; u < STAGES * CK; u += C::THREADS)
+    smem[(u / CK) * stage + zero + u % CK] = 0.0f;
+  // Global memory only once the kernel before this one on the stream is done.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  auto issue = [&](int c) {
+    float* st = smem + (c % STAGES) * stage;
+    const int m0 = m_begin + c * P;
+    if (p.va == 16) load_slab<C::THREADS, 16>(p, st, c0, m0 - W - 1);
+    else if (p.va == 8) load_slab<C::THREADS, 8>(p, st, c0, m0 - W - 1);
+    else load_slab<C::THREADS, 4>(p, st, c0, m0 - W - 1);
+    float* d = st + zero + CK;
+    if (p.vd == 16) load_dy<BN, C::THREADS, 16>(p, d, m0, m_end, n0);
+    else if (p.vd == 8) load_dy<BN, C::THREADS, 8>(p, d, m0, m_end, n0);
+    else load_dy<BN, C::THREADS, 4>(p, d, m0, m_end, n0);
+    // tbl[i * TBL + t]: the offset in the stage of the slab row that pixel
+    // m0 + i's tap t reads, or of the zero row.
+    int* tbl = reinterpret_cast<int*>(d + P * BN);
+    for (int i = tid; i < P; i += C::THREADS) {
+      const int m = m0 + i, w = m % W, h = (m / W) % p.H, odd = w & 1;
+      int o[TBL];
+#pragma unroll
+      for (int t = 0; t < 7; ++t) {
+        const int dr = kDr[odd][t], dc = kDc[odd][t], hh = h + dr, ww = w + dc;
+        const bool on = m < m_end && hh >= 0 && hh < p.H && ww >= 0 && ww < W;
+        o[t] = on ? (i + W + 1 + dr * W + dc) * CK : zero;
+      }
+      o[7] = zero;
+      reinterpret_cast<int4*>(tbl + i * TBL)[0] = make_int4(o[0], o[1], o[2], o[3]);
+      reinterpret_cast<int4*>(tbl + i * TBL)[1] = make_int4(o[4], o[5], o[6], o[7]);
+    }
+  };
+
+  float acc[7][TR][TC];
+#pragma unroll
+  for (int t = 0; t < 7; ++t)
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc[t][i][j] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < chunks) issue(c);
+    hop::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    hop::cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();  // everyone's have, and everyone is done with chunk c - 1
+    if (c + STAGES - 1 < chunks) issue(c + STAGES - 1);  // into chunk c - 1's stage
+    hop::cp_async_commit();
+    // Group g takes the chunk's pixels g, g + KS, g + 2 KS, ...
+    const float* sl = smem + (c % STAGES) * stage + ty * TR;
+    const float* ds = smem + (c % STAGES) * stage + zero + CK + g * BN + tx * TC;
+    const int* tbl = reinterpret_cast<const int*>(smem + (c % STAGES) * stage + zero + CK +
+                                                  P * BN) + g * TBL;
+#pragma unroll
+    for (int k = 0; k < P / KS; ++k) {
+      const int4 o0 = reinterpret_cast<const int4*>(tbl + k * KS * TBL)[0];
+      const int4 o1 = reinterpret_cast<const int4*>(tbl + k * KS * TBL)[1];
+      const int off[7] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z};
+      const float4 d = *reinterpret_cast<const float4*>(ds + k * KS * BN);
+      const float dv[TC] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int t = 0; t < 7; ++t) {
+        const float4 a = *reinterpret_cast<const float4*>(sl + off[t]);
+        const float av[TR] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TC; ++j) acc[t][i][j] = fmaf(av[i], dv[j], acc[t][i][j]);
+      }
+    }
+  }
+
+  // Epilogue.  The groups' tiles [7][CK][BN] are added in group order in
+  // shared memory into the block's tile (group g > 0 stores its tile, group
+  // 0 adds them to its registers and stores the sum); then the cluster adds
+  // its blocks' tiles in slice (rank) order, one share of the tile per
+  // block, to dW or to the cluster's workspace partial.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the reduce kernel
+  __syncthreads();  // the ring is no longer read
+  float* tile = smem;
+  auto at = [&](int group, int t, int i) {
+    return reinterpret_cast<float4*>(tile + group * 4 * C::TILE4 + (t * CK + ty * TR + i) * BN +
+                                     tx * TC);
+  };
+  if (g > 0) {
+#pragma unroll
+    for (int t = 0; t < 7; ++t)
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        *at(g, t, i) = make_float4(acc[t][i][0], acc[t][i][1], acc[t][i][2], acc[t][i][3]);
+  }
+  if (KS > 1) __syncthreads();
+  if (g == 0) {
+#pragma unroll
+    for (int t = 0; t < 7; ++t)
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float4 s = make_float4(acc[t][i][0], acc[t][i][1], acc[t][i][2], acc[t][i][3]);
+#pragma unroll
+        for (int k = 1; k < KS; ++k) {
+          const float4 q = *at(k, t, i);
+          s.x += q.x, s.y += q.y, s.z += q.z, s.w += q.w;
+        }
+        *at(0, t, i) = s;
+      }
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = p.cluster;
+  const int rank = csize > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  if (csize > 1) cluster.sync(); else __syncthreads();
+  const float4* ranks[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    ranks[r] = reinterpret_cast<const float4*>(
+        r < csize && csize > 1 ? cluster.map_shared_rank(tile, r) : tile);
+  const int share = (C::TILE4 + csize - 1) / csize;
+  const int v_end = min(C::TILE4, (rank + 1) * share);
+  float* out = p.out;
+  if (static_cast<int>(gridDim.z) > csize)
+    out += (int64_t)(blockIdx.z / csize) * 7 * p.Cin * p.Cout;
+  for (int v = rank * share + tid; v < v_end; v += C::THREADS) {
+    const int row = v / (BN / 4), col = (v % (BN / 4)) * 4;
+    const int t = row / CK, ci = c0 + row % CK, co = n0 + col;
+    if (ci >= p.Cin || co >= p.Cout) continue;
+    float4 s = ranks[0][v];
+#pragma unroll
+    for (int r = 1; r < MAX_CLUSTER; ++r) {
+      if (r < csize) {
+        const float4 q = ranks[r][v];
+        s.x += q.x, s.y += q.y, s.z += q.z, s.w += q.w;
+      }
+    }
+    float* dst = out + ((int64_t)t * p.Cin + ci) * p.Cout + co;
+    if (p.vo && co + 3 < p.Cout) {
+      *reinterpret_cast<float4*>(dst) = s;
+    } else {
+      const float sv[4] = {s.x, s.y, s.z, s.w};
+      for (int j = 0; j < 4 && co + j < p.Cout; ++j) dst[j] = sv[j];
+    }
+  }
+  if (csize > 1) cluster.sync();  // no block leaves while its tile is read
+}
+
+template <int BN>
+cudaError_t configure() {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(hexconv_dw_f32_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  return cudaSuccess;
+}
+
+// Launch configuration: `slices` slices in clusters of `cluster` blocks,
+// a programmatic dependent of the kernel before it on the stream (it may
+// start early and waits for that kernel at griddepcontrol.wait).
+template <int BN>
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  Launch(int cin, int cout, int slices, int cluster, int smem, cudaStream_t s) {
+    cfg.gridDim = dim3((cin + CK - 1) / CK, (cout + BN - 1) / BN, slices);
+    cfg.blockDim = dim3(Cfg<BN>::THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = cluster;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 2;
+  }
+};
+
+// The most clusters of `cluster` blocks that the card holds at once on
+// boards W wide (a cluster's blocks share one GPC); 0 where it cannot say.
+template <int BN>
+int max_clusters(int W, int cluster) {
+  const int smem = smem_bytes(BN, P + 2 * W + 2);
+  if (smem > kMaxSmem || configure<BN>() != cudaSuccess) return 0;
+  Launch<BN> l(CK, BN, cluster, cluster, smem, 0);
+  l.cfg.numAttrs = 1;  // the clusters alone
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, hexconv_dw_f32_kernel<BN>, &l.cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+template <int BN>
+int launch_bn(Params p, int slices, cudaStream_t s) {
+  p.slab_rows = P + 2 * p.W + 2;
+  const int smem = smem_bytes(BN, p.slab_rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = configure<BN>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if ((p.Cout + BN - 1) / BN > 65535 || slices > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  Launch<BN> l(p.Cin, p.Cout, slices, p.cluster, smem, s);
+  return static_cast<int>(cudaLaunchKernelEx(&l.cfg, hexconv_dw_f32_kernel<BN>, p));
+}
+
+// BN: Cout over ceil(Cout / 64) balanced tiles, rounded up to 16, 32, 48
+// or 64 (1 -> 16, 21 -> 32, 42 -> 48, 138 -> 3 x 48, 256 -> 4 x 64).
+int tile_width(int cout) {
+  const int tiles = (cout + 63) / 64, per = (cout + tiles - 1) / tiles;
+  return per <= 16 ? 16 : per <= 32 ? 32 : per <= 48 ? 48 : 64;
+}
+
+int launch(const Params& p, int slices, cudaStream_t s) {
+  switch (tile_width(p.Cout)) {
+    case 16: return launch_bn<16>(p, slices, s);
+    case 32: return launch_bn<32>(p, slices, s);
+    case 48: return launch_bn<48>(p, slices, s);
+    default: return launch_bn<64>(p, slices, s);
+  }
+}
+
+// Blocks per cluster for `slices` slices: the largest count up to
+// MAX_CLUSTER that divides them (hexconv_kernel.py:dw_cluster says the same).
+int cluster_size(int slices) {
+  for (int c = MAX_CLUSTER; c > 1; --c)
+    if (slices % c == 0) return c;
+  return 1;
+}
+
+}  // namespace f32
 // ---------------------------------------------------------------------
 // bf16: the Hopper kernel.  Per block: CK = 64 input channels ci of x, BN
 // output channels of dY and one slice of the pixels, for all 7 taps.  The
@@ -521,6 +788,10 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, int64_t i, float v) {
 // dw[i] = sum over slices, in slice order, of part[s, i], rounded once.
 template <typename T>
 __global__ void hexconv_dw_reduce_kernel(const float* part, T* dw, int64_t n, int slices) {
+  // As a programmatic dependent (f32): read only once the main kernel is
+  // done, and let the next kernel launch, which waits for this one in turn.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     float s = 0.f;
@@ -531,34 +802,59 @@ __global__ void hexconv_dw_reduce_kernel(const float* part, T* dw, int64_t n, in
 
 }  // namespace
 
+// The pixel step of both kernels' slices.
+constexpr int SLICE_STEP = 16;
+static_assert(f32::P % SLICE_STEP == 0 && hop::P % SLICE_STEP == 0, "whole chunks or k16 steps");
+
 // Plain C interface (loaded with ctypes).  dtype: 0 = f32, 1 = bf16.
-// x: [B, H, W, Cin], dy: [B, H, W, Cout] in the given dtype; part: an f32
-// workspace of slices * 7*Cin * Cout values; dw: [7, Cin, Cout] in the given
-// dtype; all contiguous.  `slices` slices of `slice` pixels (a multiple of
-// 16) must cover the B*H*W pixels.  Launches both kernels on `stream` and
-// returns the cudaError_t of the launches (0 = success); no synchronize.
-// The bf16 kernel refuses boards wider than hexconv_dw_max_width.
+// x: [B, H, W, Cin], dy: [B, H, W, Cout] in the given dtype; dw: [7, Cin,
+// Cout] in the given dtype; all contiguous.  `slices` slices of `slice`
+// pixels (a multiple of 16) must cover the B*H*W pixels, none empty.
+// part: an f32 workspace of hexconv_dw_partials(slices, dtype) * 7*Cin *
+// Cout values.  Launches on `stream`
+// and returns the cudaError_t of the launches (0 = success); no
+// synchronize.  Both kernels refuse boards wider than hexconv_dw_max_width.
 extern "C" int hexconv_dw(const void* x, const void* dy, float* part, void* dw, int B, int H,
                           int W, int Cin, int Cout, int dtype, int slices, int slice,
                           void* stream) {
   const int M = B * H * W;
   if (M == 0 || Cin == 0 || Cout == 0) return 0;
-  if (slices < 1 || slice < MC || slice % MC != 0 || (int64_t)slices * slice < M ||
-      (int64_t)(slices - 1) * slice >= M)
+  if (slices < 1 || slice < SLICE_STEP || slice % SLICE_STEP != 0 ||
+      (int64_t)slices * slice < M || (int64_t)(slices - 1) * slice >= M)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int64_t n = (int64_t)7 * Cin * Cout;
   const int reduce_blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   if (dtype == 0) {
-    Params p;
-    p.x = static_cast<const float*>(x), p.dy = static_cast<const float*>(dy), p.part = part;
-    p.M = M, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.K = 7 * Cin;
+    f32::Params p;
+    p.x = static_cast<const float*>(x), p.dy = static_cast<const float*>(dy);
+    p.M = M, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout;
     p.slice = slice;
-    const dim3 grid((p.K + BR - 1) / BR, (Cout + BC - 1) / BC, slices);
-    if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-    hexconv_dw_f32_kernel<<<grid, THREADS, 0, s>>>(p);
-    hexconv_dw_reduce_kernel<float><<<reduce_blocks, 256, 0, s>>>(part, static_cast<float*>(dw),
-                                                                 n, slices);
+    p.cluster = f32::cluster_size(slices);
+    const int partials = slices / p.cluster;
+    p.out = partials == 1 ? static_cast<float*>(dw) : part;
+    p.va = copy_width_f32(x, Cin);
+    p.vd = copy_width_f32(dy, Cout);
+    p.vo = Cout % 4 == 0 && aligned(p.out, 16);
+    const int err = f32::launch(p, slices, s);
+    if (err != 0) return err;
+    if (partials > 1) {
+      // A programmatic dependent of the main kernel: its launch overlaps
+      // the main kernel's epilogue.
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(reduce_blocks);
+      cfg.blockDim = dim3(256);
+      cfg.stream = s;
+      cudaLaunchAttribute pdl;
+      pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      pdl.val.programmaticStreamSerializationAllowed = 1;
+      cfg.attrs = &pdl;
+      cfg.numAttrs = 1;
+      const cudaError_t e =
+          cudaLaunchKernelEx(&cfg, hexconv_dw_reduce_kernel<float>, static_cast<const float*>(part),
+                             static_cast<float*>(dw), n, partials);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
   } else if (dtype == 1) {
     hop::DwParams p;
     p.x = static_cast<const __nv_bfloat16*>(x), p.dy = static_cast<const __nv_bfloat16*>(dy);
@@ -577,21 +873,50 @@ extern "C" int hexconv_dw(const void* x, const void* dy, float* part, void* dw, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks of one pixel slice of the dW kernel of `dtype`: the grid plan
-// (nuzero_tpu_torch/ops/cuda/hexconv_kernel.py) sizes the slices by it.
-// The bf16 kernel's blocks take 64 input channels and one BN tile of Cout;
-// -1 for f32, whose plan is its own.
-extern "C" int hexconv_dw_blocks_per_slice(int Cin, int Cout, int dtype) {
-  if (dtype != 1) return -1;
-  const int bn = hop::tile_width(Cout);
-  return ((Cin + hop::CK - 1) / hop::CK) * ((Cout + bn - 1) / bn);
+// The workspace partials of `slices` slices: one per cluster of the f32
+// kernel (none where one cluster covers them: it writes dW itself), one
+// per slice for bf16.
+extern "C" int hexconv_dw_partials(int slices, int dtype) {
+  if (dtype != 0) return slices;
+  const int c = f32::cluster_size(slices);
+  return slices == c ? 0 : slices / c;
 }
 
-// The widest board (W) the dW kernel of `dtype` takes at `Cout`: the bf16
-// kernel's STAGES slabs of P + 2W + 2 rows must fit its shared memory
-// beside the dY tiles and tap tables; -1 where there is no such cap (f32).
+// The blocks of one pixel slice of the dW kernel of `dtype`: the grid plan
+// (nuzero_tpu_torch/ops/cuda/hexconv_kernel.py) sizes the slices by it.
+// A block takes CK input channels (f32: 64 / KS; bf16: 64) and one BN tile
+// of Cout.
+extern "C" int hexconv_dw_blocks_per_slice(int Cin, int Cout, int dtype) {
+  const int ck = dtype == 0 ? f32::CK : hop::CK;
+  const int bn = dtype == 0 ? f32::tile_width(Cout) : hop::tile_width(Cout);
+  return ((Cin + ck - 1) / ck) * ((Cout + bn - 1) / bn);
+}
+
+// The most clusters of `cluster` blocks (1 to 8) of the f32 dW kernel that
+// the card holds at once at `Cout` on boards W wide: the grid plan keeps the
+// slices' clusters in one wave.  0 where it cannot say; -1 for bf16, whose
+// blocks take a whole SM each.
+extern "C" int hexconv_dw_max_clusters(int Cout, int W, int cluster, int dtype) {
+  if (dtype != 0) return -1;
+  if (cluster < 1 || cluster > f32::MAX_CLUSTER) return 0;
+  switch (f32::tile_width(Cout)) {
+    case 16: return f32::max_clusters<16>(W, cluster);
+    case 32: return f32::max_clusters<32>(W, cluster);
+    case 48: return f32::max_clusters<48>(W, cluster);
+    default: return f32::max_clusters<64>(W, cluster);
+  }
+}
+
+// The widest board (W) the dW kernel of `dtype` takes at `Cout`: its
+// STAGES slabs of P + 2W + 2 rows must fit its shared memory beside the
+// dY tiles and tap tables.
 extern "C" int hexconv_dw_max_width(int Cout, int dtype) {
-  if (dtype != 1) return -1;
+  if (dtype == 0) {
+    const int bn = f32::tile_width(Cout);
+    int w = 0;
+    while (f32::smem_bytes(bn, f32::P + 2 * (w + 1) + 2) <= kMaxSmem) ++w;
+    return w;
+  }
   const int rows = (kMaxSmem - hop::smem_bytes(hop::tile_width(Cout), 0)) /
                    (hop::STAGES * hop::ROW_BYTES);
   return (rows - hop::P - 2) / 2;  // slab rows P + 2W + 2 <= rows

@@ -33,21 +33,28 @@ int copy_width(const void* p, int channels) {
   return 2;
 }
 
+// Bytes per copy of rows of `channels` f32 values starting at `p`.
+int copy_width_f32(const void* p, int channels) {
+  if (channels % 4 == 0 && aligned(p, 16)) return 16;
+  if (channels % 2 == 0 && aligned(p, 8)) return 8;
+  return 4;
+}
+
 namespace hop {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copy SIZE bytes (4 or 16) global -> shared; bytes past `valid` are zeroed.
+// Copy SIZE bytes (4, 8 or 16) global -> shared; bytes past `valid` are zeroed.
 template <int SIZE>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int valid) {
   if constexpr (SIZE == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                  "r"(valid));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(SIZE), "r"(valid));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -24,12 +24,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The forward kernel (``csrc/hexconv.cu``) each dtype launches.
 KERNELS = {torch.float32: "hexconv_f32_kernel", torch.bfloat16: "hexconv_bf16_wgmma_kernel"}
 #: The weight-gradient kernel (``csrc/hexconv_dw.cu``) each dtype launches;
-#: each launch is followed by the reduce kernel that adds its slices.
+#: each launch is followed by the reduce kernel that adds its workspace
+#: partials, where there is more than one.
 DW_KERNELS = {torch.float32: "hexconv_dw_f32_kernel",
               torch.bfloat16: "hexconv_dw_bf16_wgmma_kernel"}
-#: The f32 dW kernel's tile (rows of dW x output channels); the pixel step
-#: of both dW kernels' slices.
-DW_TILE, DW_CHUNK = 64, 16
+#: The pixel step of both dW kernels' slices (the f32 kernel's chunk), and
+#: the most blocks of an f32 dW thread-block cluster.
+DW_CHUNK, DW_MAX_CLUSTER = 16, 8
 
 #: Launches per device kernel since the last ``reset_launch_count()``.
 launch_count = {name: 0 for name in (*KERNELS.values(), *DW_KERNELS.values())}
@@ -83,16 +84,32 @@ def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dw_cluster(slices: int) -> int:
+    """Blocks per thread-block cluster of the f32 dW kernel for ``slices``
+    slices: the largest count up to 8 that divides them (the rule of
+    ``f32::cluster_size`` in ``csrc/hexconv_dw.cu``)."""
+    return max(c for c in range(1, DW_MAX_CLUSTER + 1) if slices % c == 0)
+
+
 @functools.lru_cache(maxsize=None)
-def dw_slices(m: int, cin: int, cout: int, sms: int) -> tuple[int, int]:
+def dw_slices(m: int, tiles: int, capacity: tuple[int, ...]) -> tuple[int, int]:
     """(slices, pixels per slice) of the f32 dW kernel's grid for M = ``m``
-    pixels: enough slices that the tiles of dW make about eight blocks per
-    SM, each slice at least 8 chunks long, every slice non-empty."""
-    tiles = math.ceil(7 * cin / DW_TILE) * math.ceil(cout / DW_TILE)
+    pixels and ``tiles`` blocks per slice (``hexconv_dw_blocks_per_slice``),
+    where the card holds at once ``capacity[c - 1]`` clusters of c blocks
+    (``hexconv_dw_max_clusters``; c = 1: blocks).  The slices are the
+    shortest whole numbers of 16-pixel chunks that keep the grid in one wave
+    of blocks, none empty, lengthened until they fall in clusters of at
+    least 4 blocks (or in one cluster of 8 or fewer) that the card holds at
+    once: the clusters' partials, not the slices', go to the workspace."""
     chunks = math.ceil(m / DW_CHUNK)
-    want = max(1, min(math.ceil(8 * sms / tiles), chunks // 8))
-    per_slice = math.ceil(chunks / want) * DW_CHUNK
-    return math.ceil(m / per_slice), per_slice
+    per = math.ceil(chunks / max(1, min(capacity[0] // tiles, chunks)))
+    while True:
+        slices = math.ceil(chunks / per)
+        cluster = dw_cluster(slices)
+        if slices == 1 or ((slices <= DW_MAX_CLUSTER or cluster >= 4)
+                           and tiles * (slices // cluster) <= capacity[cluster - 1]):
+            return slices, per * DW_CHUNK
+        per += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,16 +132,31 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_bf16_blocks(cin: int, cout: int) -> int:
-    return hexconv_dw_library().hexconv_dw_blocks_per_slice(cin, cout, _DTYPES[torch.bfloat16])
+def _dw_blocks(lib, cin: int, cout: int, code: int) -> int:
+    return lib.hexconv_dw_blocks_per_slice(cin, cout, code)
 
 
-def dw_plan(m: int, cin: int, cout: int, dtype: torch.dtype, index: int) -> tuple[int, int]:
-    """(slices, pixels per slice) of the dW kernel of ``dtype`` on card
-    ``index``."""
+@functools.lru_cache(maxsize=None)
+def _dw_capacity(lib, cout: int, w: int, index: int) -> tuple[int, ...]:
+    with torch.cuda.device(index):
+        return tuple(lib.hexconv_dw_max_clusters(cout, w, c, 0)
+                     for c in range(1, DW_MAX_CLUSTER + 1))
+
+
+def dw_plan(m: int, cin: int, cout: int, dtype: torch.dtype, index: int, w: int,
+            lib=None) -> tuple[int, int, int]:
+    """(slices, pixels per slice, workspace partials) of the dW kernel of
+    ``dtype`` on card ``index`` for M = ``m`` pixels of boards ``w`` wide,
+    from the tile rule and occupancy of ``lib`` (the built
+    ``csrc/hexconv_dw.cu`` unless another build is named)."""
+    lib = lib or hexconv_dw_library()
+    code = _DTYPES[dtype]
+    tiles = _dw_blocks(lib, cin, cout, code)
     if dtype == torch.bfloat16:
-        return dw_wgmma_slices(m, _dw_bf16_blocks(cin, cout), _sm_count(index))
-    return dw_slices(m, cin, cout, _sm_count(index))
+        slices, per = dw_wgmma_slices(m, tiles, _sm_count(index))
+    else:
+        slices, per = dw_slices(m, tiles, _dw_capacity(lib, cout, w, index))
+    return slices, per, lib.hexconv_dw_partials(slices, code)
 
 
 def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -143,8 +175,8 @@ def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     M = B * H * W
     if M * max(Cin, Cout) >= 2**31 or 7 * Cin * max(Cout, 1) >= 2**31:
         raise ValueError("hex_conv_dw_cuda shapes exceed 32-bit indexing")
-    slices, per_slice = dw_plan(M, Cin, Cout, x.dtype, x.device.index)
-    part = torch.empty((slices, 7 * Cin, Cout), dtype=torch.float32, device=x.device)
+    slices, per_slice, partials = dw_plan(M, Cin, Cout, x.dtype, x.device.index, W)
+    part = torch.empty((partials, 7 * Cin, Cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((7, Cin, Cout), dtype=x.dtype, device=x.device)
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     lib = hexconv_dw_library()

@@ -130,11 +130,14 @@ def _grad_inputs(b, h, w, cin, cout, dtype, seed):
 _BACKWARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 # (B, H, W, Cin, Cout) of dW cases beyond BACKWARD_RAGGED: every conv shape
-# of one 256-filter update (B=256 on 5x5), then the bf16 kernel's edges:
-# Cin and Cout off multiples of 8 (2-byte and 4-byte copies, padded M and
-# N), fewer pixels than one 16-pixel step, odd and even widths, a 30x30
-# board, Cin past two 64-channel blocks with a ragged last one.
+# of one 256-filter update and of one 64-filter update (B=256 on 5x5; the
+# f32 kernel's plan puts their slices in clusters of 5 and 8), then the
+# kernels' edges: Cin and Cout off multiples of 8 and of 4 (2-, 4- and
+# 8-byte copies, padded tiles), fewer pixels than one 16-pixel step (one
+# cluster, dW written by the kernel), odd and even widths, a 30x30 board,
+# Cin past two 64-channel blocks with a ragged last one.
 DW_CASES = ([(256, 5, 5, cin, cout) for cin, cout, _ in conv_shapes(256, iterations=4)]
+            + [(256, 5, 5, cin, cout) for cin, cout, _ in conv_shapes(64, iterations=4)]
             + [(1, 2, 5, 21, 13), (3, 7, 9, 37, 70), (2, 6, 8, 150, 138), (5, 4, 4, 8, 1),
                (2, 30, 30, 256, 138), (3, 9, 10, 342, 21), (2, 5, 6, 100, 250)])
 
@@ -179,6 +182,35 @@ def test_dw_bf16_kernel_raises_past_the_shared_memory_cap(cuda_card):
     x, _, dy = _grad_inputs(1, 2, 135, 64, 64, torch.bfloat16, seed=29)
     hexconv_kernel.reset_launch_count()
     with pytest.raises(RuntimeError, match="shared-memory cap .boards up to 134 wide"):
+        hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    assert sum(hexconv_kernel.launch_count.values()) == 0
+
+
+@pytest.mark.cuda
+def test_dw_f32_kernel_at_the_widest_board_that_fits(cuda_card):
+    """The f32 dW kernel's two halo slabs (16 + 2W + 2 rows of 64 channels)
+    fit its shared memory beside the dY tiles and tap tables at least up to
+    the bf16 kernel's W = 134 at Cout 64: the widest board it takes runs,
+    matches the plain version and gives the same bits twice."""
+    cap = hexconv_kernel.hexconv_dw_library().hexconv_dw_max_width(64, 0)
+    assert cap >= 134
+    x, _, dy = _grad_inputs(1, 2, cap, 64, 64, torch.float32, seed=31)
+    got = hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    again = hexconv_kernel.hex_conv_dw_cuda(x, dy)
+    want = hexconv.hex_conv_dw_plain(x, dy)
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= _BACKWARD_TOL[torch.float32] * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dw_f32_kernel_raises_past_the_shared_memory_cap(cuda_card):
+    """One column past its cap the f32 dW kernel refuses the launch: the
+    wrapper raises an error naming the cap, and nothing is counted."""
+    cap = hexconv_kernel.hexconv_dw_library().hexconv_dw_max_width(64, 0)
+    x, _, dy = _grad_inputs(1, 2, cap + 1, 64, 64, torch.float32, seed=31)
+    hexconv_kernel.reset_launch_count()
+    with pytest.raises(RuntimeError, match=f"shared-memory cap .boards up to {cap} wide"):
         hexconv_kernel.hex_conv_dw_cuda(x, dy)
     assert sum(hexconv_kernel.launch_count.values()) == 0
 

@@ -209,8 +209,9 @@ def test_chip_smoke_sass_counts():
 
 
 def test_chip_smoke_checks_every_kernel():
-    """Phase 1 holds every kernel to a SASS rule (the f32 dW kernel: FFMA,
-    no tensor-core instruction; the bf16 dW kernel: HGMMA fed by ldmatrix),
+    """Phase 1 holds every kernel to a SASS rule (the f32 dW kernel: FFMA
+    fed by cp.async, no tensor-core instruction; the bf16 dW kernel: HGMMA
+    fed by ldmatrix),
     and phase 2's ragged f32 cases cover odd Cin,
     pixel counts off the block size, odd and even widths and Cout of 1 and
     42."""
@@ -218,13 +219,25 @@ def test_chip_smoke_checks_every_kernel():
 
     assert set(chip_smoke.SASS) == {*KERNELS.values(), *DW_KERNELS.values()}
     assert chip_smoke.SASS["hexconv_f32_kernel"] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
-    assert chip_smoke.SASS[DW_KERNELS[torch.float32]] == (("FFMA",), ("HMMA", "HGMMA"))
+    assert chip_smoke.SASS[DW_KERNELS[torch.float32]] == (("FFMA", "LDGSTS"), ("HMMA", "HGMMA"))
     assert chip_smoke.SASS[DW_KERNELS[torch.bfloat16]] == (("HGMMA", "LDSM"), ())
     ragged = chip_smoke.RAGGED
     assert any(cin % 2 for _, _, _, cin, _ in ragged)
     assert any((b * h * w) % 64 for b, h, w, _, _ in ragged)
     assert {w % 2 for _, _, w, _, _ in ragged} == {0, 1}
     assert {1, 42} <= {cout for *_, cout in ragged}
+
+
+@pytest.mark.parametrize("intervals,ms", [
+    ([], 0.0),
+    ([(0, 10)], 0.01),
+    ([(0, 10), (5, 20), (30, 40)], 0.03),  # overlapping kernels count once
+    ([(30, 40), (0, 10), (2, 4)], 0.02),   # nested and out of order
+])
+def test_chip_smoke_union_ms(intervals, ms):
+    """Device time of kernels that may overlap (the f32 dW's reduce kernel
+    starts beside its main kernel): the union of their intervals, us -> ms."""
+    assert chip_smoke.union_ms(intervals) == pytest.approx(ms)
 
 
 def test_chip_smoke_backward_ragged_shapes():
@@ -269,16 +282,47 @@ def test_library_backward_is_the_hex_backward():
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-def test_dw_slices_cover_every_pixel():
-    """The dW kernel's grid: every slice non-empty, a whole number of
-    16-pixel chunks, together covering all pixels; about eight blocks per
-    SM where the pixels allow it."""
-    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import dw_slices
+# What an H100 holds at once of the f32 dW kernel's clusters of c = 1..8
+# blocks at one block per SM: 132 SMs in GPCs of 16 and 18 (a cluster's
+# blocks share a GPC).
+_GPCS = (16, 16, 16, 16, 16, 16, 18, 18)
+_CAPACITY = tuple(sum(n // c for n in _GPCS) for c in range(1, 9))
 
-    for m, cin, cout in ((6400, 342, 256), (6400, 64, 1), (25, 1, 1), (12800, 86, 64)):
-        slices, per = dw_slices(m, cin, cout, 132)
-        assert per % 16 == 0 and slices * per >= m > (slices - 1) * per
-    assert dw_slices(6400, 342, 256, 132) == (7, 928)  # 152 tiles x 7 = 1064 blocks
+
+@pytest.mark.parametrize("m,tiles", [
+    (6400, 3), (6400, 5), (6400, 2), (6400, 1),
+    (6400, 16), (6400, 40), (6400, 32), (6400, 20), (6400, 15), (6400, 12), (6400, 4),
+    (10, 1), (16, 1), (17, 6), (25, 1), (1800, 12), (12800, 2), (57600, 1), (6400, 132),
+    (6400, 1024),
+])
+def test_dw_slices_cover_every_pixel(m, tiles):
+    """The f32 dW kernel's grid for ``tiles`` blocks per slice (the 64f
+    update's 3, 5, 2 and 1, the 256f update's 16, 40, 32, 20, 15, 12 and 4,
+    then edges): slices of whole 16-pixel chunks that cover every pixel
+    once, none empty, whose count the cluster size divides with clusters of
+    at least 4 blocks (or one cluster of at most 8), all of the grid's
+    clusters held by the card at once (``_CAPACITY``), and no shorter slice
+    that keeps all of that."""
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import dw_cluster, dw_slices
+
+    slices, per = dw_slices(m, tiles, _CAPACITY)
+    starts = range(0, slices * per, per)
+    assert per % 16 == 0 and per > 0
+    assert all(start < m for start in starts) and slices * per >= m  # none empty, all covered
+
+    def fits(n):
+        c = dw_cluster(n)
+        return n == 1 or ((n <= 8 or c >= 4) and tiles * (n // c) <= _CAPACITY[c - 1])
+
+    cluster = dw_cluster(slices)
+    assert 1 <= cluster <= 8 and slices % cluster == 0
+    assert fits(slices)
+    chunks, per_chunks = -(-m // 16), per // 16
+    if per_chunks > 1:
+        shorter = -(-chunks // (per_chunks - 1))
+        assert tiles * shorter > _CAPACITY[0] or not fits(shorter)
+    if (m, tiles) == (6400, 2):
+        assert (slices, per, cluster) == (50, 128, 5)  # 64->64: 2 x 10 clusters of 5 blocks
 
 
 @pytest.mark.parametrize("m,tiles", [
@@ -301,6 +345,22 @@ def test_dw_wgmma_slices_cover_every_pixel(m, tiles):
     assert tiles * slices <= wave
     shorter = -(-steps // (per_steps - 1)) if per_steps > 1 else None
     assert shorter is None or tiles * shorter > wave, "a shorter slice would still fit one wave"
+
+
+def test_timeline_instruments_the_tree_kernel():
+    """timeline_dw.py finds each of its anchors once in csrc/hexconv_dw.cu
+    and marks the f32 kernel's seven phase boundaries; a moved anchor
+    raises instead of timing the wrong spans."""
+    from nuzero_tpu_torch.ops.cuda import timeline_dw
+    from nuzero_tpu_torch.ops.cuda.build import CSRC
+
+    with open(os.path.join(CSRC, "hexconv_dw.cu")) as f:
+        source = f.read()
+    text = timeline_dw.instrument(source)
+    assert [text.count(f"mark({k});") for k in range(7)] == [1] * 7
+    assert len(timeline_dw.PHASES) == 6 and 'extern "C" int set_timeline' in text
+    with pytest.raises(ValueError, match="anchor"):
+        timeline_dw.instrument(source.replace("  // Epilogue.", "  // epilogue"))
 
 
 def test_build_digest_follows_the_headers(tmp_path, monkeypatch):
