@@ -26,18 +26,26 @@ Phases, each of which must pass:
 3. network check: both legs' RecurrentNet on the card (kernel) against
    the same weights on the CPU (plain version) on a small batch;
 4. self-play, 256 filters, bf16 compute, B=768, and
-5. self-play, 64 filters, f32, B=512: ``init_selfplay`` then four moves
-   of ``make_selfplay_step`` (SCS ``open_field_5.yml``, seed 42,
+5. self-play, 64 filters, f32, B=512: ``init_selfplay`` then four eager
+   moves of ``make_selfplay_step`` (SCS ``open_field_5.yml``, seed 42,
    ``RecurrentNet(policy_channels=21, num_blocks=2, recall=True,
    hex=True)``, 2 iterations, 30 simulations with carried trees,
    ``training=True``; random weights from a seed).  Each leg checks the
    move counter, the legality of every played action, that policy targets
    are distributions over the legal actions, and that the kernel ran
-   17 times per network evaluation.
-
-Each leg then plays one more move under ``torch.profiler`` and prints the
-device kernels' busy time, the card's idle share of a steady move and the
-hex conv's share of the busy time.
+   17 times per network evaluation; it lists the host synchronizations of
+   the first move by site (``sync_sites``, sync debug mode "warn"), and
+   plays one more move under ``torch.profiler`` (device kernels, busy
+   time, idle share, the hex conv's share).  Then the graphed move: from
+   the same initial state and generator state, ``capture_selfplay_step``
+   and four replays, each under sync debug mode "error" (no host sync
+   inside a replay), each equal bit for bit to the eager move of the same
+   index in every tensor the move writes and in the generator's state,
+   with the recorded policy rows over the recorded positions' legal
+   actions; then one replay under the profiler, which must count 17 x 31
+   = 527 hex-conv launches (with where the card idles, ``idle_gaps``),
+   and the capture time, seconds per replayed move, the host's time until
+   ``replay()`` returns and env-steps/s beside the eager ones.
 
 The training half:
 
@@ -63,11 +71,12 @@ The training half:
 8. training run: ``AlphaZero(...).run()`` on the flagship configs
    (``scs_contested256.yaml``, ``scs_contested256_search.yaml``) loaded by
    the port's schemas at full network and learner width, cut as
-   ``TRAIN_CUTS`` says; it checks the update count, finite losses, changed
-   parameters, a grown buffer and a checkpoint that restores equal through
-   ``load``; then times 10 more learner updates on the filled buffer and
-   profiles one (device busy time, idle share, hex-conv forward, dX and dW
-   device time).
+   ``TRAIN_CUTS`` says, its self-play through the graphed move; it
+   prints each step's self-play and train seconds and checks the update
+   count, finite losses, changed parameters, a grown buffer and a
+   checkpoint that restores equal through ``load``; then times 10 more
+   learner updates on the filled buffer and profiles one (device busy
+   time, idle share, hex-conv forward, dX and dW device time).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -265,17 +274,39 @@ def union_ms(intervals) -> float:
     return busy / 1e3
 
 
-def profile_move(step, variables, sp):
-    """One move under torch.profiler -> (seconds, device kernels, device busy
-    ms as the union of kernel intervals, hex-conv ms, hex-conv launches)."""
-    import tempfile
+def idle_gaps(kernels) -> str:
+    """Where the card idles between the profiled kernels (trace events):
+    the idle time between the first start and the last end, the gaps over
+    10 us, and the three kernels with the most idle time after them."""
+    import collections
 
+    events = sorted(kernels, key=lambda e: e["ts"])
+    after = collections.Counter()
+    total = big = 0.0
+    n_big, end = 0, events[0]["ts"] + events[0]["dur"]
+    for prev, e in zip(events, events[1:]):
+        gap = e["ts"] - end
+        if gap > 0:
+            total += gap
+            after[prev["name"].split("(")[0][-60:]] += gap
+            if gap > 10:
+                big, n_big = big + gap, n_big + 1
+        end = max(end, e["ts"] + e["dur"])
+    top = ", ".join(f"{name} {us / 1e3:.1f} ms" for name, us in after.most_common(3))
+    return (f"idle between kernels {total / 1e3:.1f} ms over {len(events) - 1} gaps, "
+            f"{n_big} gaps over 10 us sum to {big / 1e3:.1f} ms; most idle after: {top}")
+
+
+def profile_run(fn, gaps=False):
+    """``fn()`` under torch.profiler -> (seconds, device kernels, device busy
+    ms as the union of kernel intervals, hex-conv ms, hex-conv launches),
+    and ``idle_gaps`` of the trace as a sixth item with ``gaps``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(variables, sp)
+        fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -285,21 +316,76 @@ def profile_move(step, variables, sp):
             kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     busy = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     hexconv = [e["dur"] for e in kernels if "hexconv" in e["name"]]
-    return seconds, len(kernels), busy, sum(hexconv) / 1e3, len(hexconv)
+    out = (seconds, len(kernels), busy, sum(hexconv) / 1e3, len(hexconv))
+    return out + (idle_gaps(kernels),) if gaps else out
 
 
-def selfplay_leg(filters, dtype, batch):
-    """Run the self-play moves; returns (launches, evals, seconds per move)."""
+def sync_sites(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` -> (its
+    result, {site: count} of the host synchronizations it made).  A site is
+    the innermost frame in this checkout outside ``utils/graphs.py``, whose
+    ``run_while`` and ``overflowed`` read for their callers."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename.startswith(REPO) and not f.filename.endswith("graphs.py")]
+        where = frames[-1] if frames else None
+        sites[f"{os.path.relpath(where.filename, REPO)}:{where.lineno}" if where
+              else f"{filename}:{lineno}"] += 1
+
+    shown = warnings.showwarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = shown
+    return result, dict(sites)
+
+
+def check_policy(policy, legal):
+    """Raise unless each row of ``policy`` is a distribution over ``legal``."""
+    import torch
+
+    on_legal = (policy * legal).sum(-1)
+    if not (torch.allclose(on_legal, torch.ones_like(on_legal), atol=1e-5)
+            and float((policy * ~legal).abs().sum()) == 0.0):
+        raise AssertionError("policy targets are not distributions over legal actions")
+
+
+def selfplay_leg(filters, dtype, batch, card):
+    """The eager moves, then the same moves as replays of the captured
+    move, from the same state and generator state; returns (launches of the
+    eager moves, evals, eager seconds per move, replayed seconds per
+    move)."""
     import torch
 
     from nuzero_tpu_torch.envs.scs.game import SCSGame
     from nuzero_tpu_torch.ops.cuda import hexconv_kernel
     from nuzero_tpu_torch.search.mcts import SearchParams
-    from nuzero_tpu_torch.training.selfplay import init_selfplay, make_selfplay_step
+    from nuzero_tpu_torch.training.selfplay import (
+        capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
+    )
+    from nuzero_tpu_torch.utils.packing import make_packer
+
+    def snapshot(sp, finished, stats):
+        return {k: v.clone() for k, v in move_tensors(sp, finished, stats).items()}
 
     class CheckedSCSGame(SCSGame):
         """Records the legal mask of each played position and checks the
-        played action against it."""
+        played action against it (eager moves only: it reads the host)."""
 
         watch = None
         played_legal = None
@@ -325,12 +411,18 @@ def selfplay_leg(filters, dtype, batch):
         return p, val
 
     params = SearchParams(num_simulations=SIMS)
-    sp = init_selfplay(env, batch, torch.Generator(device="cuda").manual_seed(1),
-                       search_params=params)
+
+    def fresh_state():
+        return init_selfplay(env, batch, torch.Generator(device="cuda").manual_seed(1),
+                             search_params=params)
+
     step = make_selfplay_step(env, apply, params, training=True)
+    label = f"{filters}f {dtype} B={batch}"
+    sp = fresh_state()
     torch.cuda.synchronize()
 
-    seconds = []
+    # --- eager moves: legality, launches, host syncs of the first move
+    seconds, eager = [], []
     bi = torch.arange(batch, device="cuda")
     hexconv_kernel.reset_launch_count()
     evals = 0
@@ -339,27 +431,29 @@ def selfplay_leg(filters, dtype, batch):
         row = sp.move_count.long()
         env.watch = sp.games
         t0 = time.perf_counter()
-        sp, finished, stats = step(variables, sp)
+        if move == 0:
+            (finished, stats), sites = sync_sites(lambda: play_in_place(step, variables, sp))
+        else:
+            finished, stats = play_in_place(step, variables, sp)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if int(sp.total_moves) != before + batch:
             raise AssertionError("total_moves did not grow by B")
         if env.played_legal is None:
             raise AssertionError("the played move was not observed")
-        policy = sp.policy_buf[bi, row]
-        legal = env.played_legal
-        on_legal = (policy * legal).sum(-1)
-        if not (torch.allclose(on_legal, torch.ones_like(on_legal), atol=1e-5)
-                and float((policy * ~legal).abs().sum()) == 0.0):
-            raise AssertionError("policy targets are not distributions over legal actions")
+        check_policy(sp.policy_buf[bi, row], env.played_legal)
         if not bool(torch.isfinite(finished.final_value).all()):
             raise AssertionError("non-finite final values")
         if not torch.isfinite(stats["root_value_mean"]):
             raise AssertionError("non-finite root values")
         env.watch = env.played_legal = None
-        log(f"leg {filters}f {dtype} B={batch} move {move}: {seconds[-1]:.4f} s, "
-            f"root_value_mean {float(stats['root_value_mean']):+.4f}, "
+        eager.append(snapshot(sp, finished, stats))
+        log(f"leg {label} move {move}: {seconds[-1]:.4f} s"
+            + (" (host syncs counted)" if move == 0 else "")
+            + f", root_value_mean {float(stats['root_value_mean']):+.4f}, "
             f"tree_nodes_mean {float(stats['tree_nodes_mean']):.2f}")
+    log(f"host syncs of eager move 0 ({label}; sync debug mode, by site): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
     counts = dict(hexconv_kernel.launch_count)
     if evals != (1 + SIMS) * MOVES:
         raise AssertionError(f"{evals} network evaluations, expected {(1 + SIMS) * MOVES}")
@@ -367,13 +461,69 @@ def selfplay_leg(filters, dtype, batch):
     expected[hexconv_kernel.KERNELS[dtype]] = CONVS_PER_EVAL * evals
     if counts != expected:
         raise AssertionError(f"kernel launches {counts}, expected {expected}")
-    secs, n, busy, hex_ms, hex_n = profile_move(step, variables, sp)
     steady = statistics.median(seconds[1:])
-    log(f"profile {filters}f {dtype} B={batch}: one move {secs:.4f} s under the profiler, "
+    secs, n, busy, hex_ms, hex_n = profile_run(lambda: play_in_place(step, variables, sp))
+    log(f"profile {label}: one eager move {secs:.4f} s under the profiler, "
         f"{n} device kernels, busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / steady):.1f}% "
         f"of a {steady:.4f} s steady move); hex conv {hex_ms:.1f} ms in {hex_n} launches "
-        f"({100 * hex_ms / busy:.1f}% of busy)")
-    return counts[hexconv_kernel.KERNELS[dtype]], evals, seconds
+        f"({100 * hex_ms / busy:.1f}% of busy)  [{card}]")
+    launches = counts[hexconv_kernel.KERNELS[dtype]]
+    del sp
+
+    # --- the same moves as replays of the captured move
+    gsp = fresh_state()
+    _, unpack, dim = make_packer(env.init(1))
+    hexconv_kernel.reset_launch_count()
+    evals = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = capture_selfplay_step(step, variables, gsp)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    captured = hexconv_kernel.launch_count[hexconv_kernel.KERNELS[dtype]]
+    if evals != 2 * (1 + SIMS) or captured != CONVS_PER_EVAL * evals:
+        raise AssertionError(f"warm-up and capture made {evals} evaluations and {captured} "
+                             f"kernel launches")
+    replayed, launched = [], []
+    for move in range(MOVES):
+        row = gsp.move_count.long()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        replayed.append(time.perf_counter() - t0)
+        got = snapshot(gsp, finished, stats)
+        differ = [k for k in eager[move] if not torch.equal(got[k], eager[move][k])]
+        if differ:
+            raise AssertionError(f"replay {move} differs from eager move {move} in {differ}")
+        recorded = unpack(gsp.state_buf[bi, row, :dim])
+        check_policy(gsp.policy_buf[bi, row], env.legal_mask(recorded))
+        log(f"graph {label} replay {move}: {replayed[-1]:.4f} s (replay() returned after "
+            f"{launched[-1]:.4f} s), equal to eager move {move} "
+            f"in all {len(got)} tensors, no host sync inside, policy over the recorded "
+            f"position's legal actions")
+    graph.check_overflow()
+    secs, n, busy, hex_ms, hex_n, gaps = profile_run(graph.replay, gaps=True)
+    graph.check_overflow()
+    if hex_n != CONVS_PER_EVAL * (1 + SIMS):
+        raise AssertionError(f"{hex_n} hex-conv launches in a replayed move, expected "
+                             f"{CONVS_PER_EVAL * (1 + SIMS)}")
+    steady_g = statistics.median(replayed[1:])
+    log(f"graph {label}: capture {capture_s:.2f} s (warm-up move included); steady "
+        f"{steady_g:.4f} s per replayed move (median of replays 2-{MOVES}), "
+        f"{batch * SIMS / steady_g:.1f} env-steps/s, against {steady:.4f} s and "
+        f"{batch * SIMS / steady:.1f} eager  [{card}]")
+    log(f"profile {label}: one replayed move {secs:.4f} s under the profiler, {n} device "
+        f"kernels, busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / steady_g):.1f}% of a "
+        f"{steady_g:.4f} s replayed move); hex conv {hex_ms:.1f} ms in {hex_n} launches "
+        f"({100 * hex_ms / busy:.1f}% of busy); {gaps}  [{card}]")
+    return launches, (1 + SIMS) * MOVES, seconds, replayed
+
 
 def backward_check(dtype, batch, rows, cols, cin, cout, gen):
     """The dW kernel and dX (the forward kernel on the mirrored taps) of one
@@ -839,12 +989,14 @@ def main() -> int:
     # --- 4./5. self-play legs
     kernels = []
     for filters, dtype_name, batch in LEGS:
-        launches, evals, seconds = selfplay_leg(filters, getattr(torch, dtype_name), batch)
+        launches, evals, seconds, replayed = selfplay_leg(
+            filters, getattr(torch, dtype_name), batch, card)
         steady = statistics.median(seconds[1:])
         log(f"leg {filters}f {dtype_name} B={batch}: first move {seconds[0]:.4f} s, "
             f"steady {steady:.4f} s/move (median of moves 2-{MOVES}), "
             f"{batch * SIMS / steady:.1f} env-steps/s; {evals} network evaluations, "
-            f"{launches} kernel launches  [{card}]")
+            f"{launches} kernel launches; replayed {statistics.median(replayed[1:]):.4f} "
+            f"s/move  [{card}]")
         worst, sums = per_dtype[dtype_name]
         kernels.append({
             "name": KERNELS[getattr(torch, dtype_name)],

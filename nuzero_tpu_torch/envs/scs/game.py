@@ -10,7 +10,9 @@ Where the JAX engine maps one game and dispatches ``step`` through
 ``lax.switch`` over seven appliers, ``step`` here evaluates all seven
 appliers on the whole batch and selects per game by the decoded action
 kind; every applier is total on any decoded (r, c, level, direction).  The
-stage machine (``_update_env``) loops ``advance`` until no game advanced.
+stage machine (``_update_env``) loops ``advance`` until no game advanced,
+in at most ``stage_passes`` passes after the first, through
+``graphs.run_while`` so that a captured move holds them as one while-node.
 Neighbor reads are plain gathers through the static neighbor tables.
 
 Not ported yet: ``randomize_vp``, ``simple_state`` and the render helpers.
@@ -26,6 +28,7 @@ import torch
 from nuzero_tpu_torch.envs.base import Env, select_state
 from nuzero_tpu_torch.envs.scs.hexgrid import neighbor_tables
 from nuzero_tpu_torch.envs.scs.scenario import Scenario
+from nuzero_tpu_torch.utils import graphs
 
 N_STATS = 3  # attack, defense, movement (ref SCS_Game.py:76)
 N_STATUSES = 3  # available, moved, attacked (ref SCS_Game.py:75)
@@ -34,6 +37,8 @@ SUB_PHASES = 4
 
 I32 = torch.int32
 F32 = torch.float32
+# The state fields that one pass of the stage machine (_advance) changes.
+_PASS_FIELDS = ("stage", "turn", "status", "mov", "terminal", "terminal_value")
 
 
 @dataclasses.dataclass
@@ -158,6 +163,19 @@ class SCSGame(Env):
         )
         self.observation_shape = (channels, R, C)
         self.max_game_length = scenario.max_game_length
+        # The most passes of the stage machine after its first (see
+        # _update_env).  A pass moves a game one edge of the table in
+        # _advance.  Inside one _update_env nothing but a pass changes the
+        # state, so has_target is fixed (2->3->2 and 6->7->6 cannot both
+        # happen), reinforcements stay where they are, and only a turn
+        # rollover (6->0) resets statuses, to 0.  The longest chain is
+        # therefore a game where no unit stands and none arrives: -2->-1,
+        # -1->0 (turn 1), then for each turn 0->1->2->4->5->6 and 6->0
+        # (next turn), until 6 ends the game in turn `turns` with a pass
+        # that does not advance: 2 + 5*turns + (turns - 1) + 1 = 6*turns + 2
+        # passes, the first unconditional.  Stages -2 and -1 occur only in
+        # turn 0, so no other start is longer.
+        self.stage_passes = 6 * scenario.turns + 1
 
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -529,7 +547,7 @@ class SCSGame(Env):
     def _lexi_pick(cand, k1, k2, k3, order):
         """Reference strongest-unit selection: max (k1, then k2, then k3),
         first-in-``order`` ties (ref SCS_Game.py:1253-1285)."""
-        neg = torch.tensor(-1e9, dtype=F32, device=cand.device)
+        neg = -1e9
         m1 = cand & (k1 == torch.where(cand, k1, neg).amax(-1, keepdim=True))
         m2 = m1 & (k2 == torch.where(m1, k2, neg).amax(-1, keepdim=True))
         m3 = m2 & (k3 == torch.where(m2, k3, neg).amax(-1, keepdim=True))
@@ -678,13 +696,23 @@ class SCSGame(Env):
         """Advance every game's stage machine until it rests: one pass for
         all games, then more passes while any game advanced, each applied
         only to the games that advanced on the previous pass (the batched
-        form of the JAX engine's per-game ``lax.while_loop``).  The loop
-        test reads one flag on the host per pass."""
+        form of the JAX engine's per-game ``lax.while_loop``).  The later
+        passes run through ``graphs.run_while`` on "some game advanced", at
+        most ``stage_passes`` of them; a game still advancing after those
+        is an overflow (``graphs.overflowed``), never a truncation."""
         state, cont = self._advance(state)
-        while bool(cont.any()):
+
+        def body():
+            # In place on the fields a pass changes, which the first pass
+            # returned as new tensors: a no-op where no game continues.
             nxt, adv = self._advance(state)
-            state = select_state(cont, nxt, state)
-            cont = cont & adv
+            for name in _PASS_FIELDS:
+                dst = getattr(state, name)
+                dst.copy_(torch.where(_col(cont, dst.dim()), getattr(nxt, name), dst))
+            cont.logical_and_(adv)
+
+        if graphs.run_while(cont.any, body, self.stage_passes):
+            graphs.overflowed(cont.any(), f"the SCS stage machine's {self.stage_passes} passes")
         return state
 
     # -- observation ------------------------------------------------------- #

@@ -120,10 +120,24 @@ def hexconv_dw_library(source: str = "hexconv_dw.cu") -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def graph_loop_library() -> ctypes.CDLL:
+    """The while-node helpers of ``nuzero_tpu_torch.utils.graphs.run_while``
+    (``csrc/graph_loop.cu``), built on first call."""
+    lib = ctypes.CDLL(build("graph_loop", ("graph_loop.cu",)))
+    lib.graph_while_begin.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.graph_while_begin.restype = ctypes.c_int
+    lib.graph_while_end.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p]
+    lib.graph_while_end.restype = ctypes.c_int
+    return lib
+
+
 def build_all() -> dict:
     """Build every kernel library at once, one ``nvcc`` per source running
     side by side; returns {library name: CDLL}."""
-    loaders = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library}
+    loaders = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library,
+               "graph_loop": graph_loop_library}
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(load) for name, load in loaders.items()}
         return {name: f.result() for name, f in futures.items()}

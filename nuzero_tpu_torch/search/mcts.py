@@ -15,8 +15,10 @@ Counterpart of ``nuzero_tpu/search/mcts.py`` (behavioral target:
 
 B games search at once and every simulation's leaves are evaluated in one
 batched network call.  The descent is a loop over depth with per-game
-masks; it ends when no game is still descending, which the host reads once
-per depth step.  The trees are updated in place.
+masks; the depth steps after the first run through ``graphs.run_while``
+on "some game still descends", so that a captured move holds them as one
+while-node and an eager one stops at the first depth where no game
+descends.  The trees are updated in place.
 
 Where the JAX search computes ``x / constant``, XLA compiles a multiply by
 the f32 reciprocal; this search does the same multiply, so that scores and
@@ -33,12 +35,21 @@ import numpy as np
 import torch
 
 from nuzero_tpu_torch.search.tree import Tree, child_stats, init_tree, reset_trees
+from nuzero_tpu_torch.utils import graphs
 from nuzero_tpu_torch.utils.packing import make_packer
 
 NEG_INF = -1e9
 
 #: Descent path cap (``nuzero_tpu/search/mcts.py:MAX_PATH_DEPTH``).
 MAX_PATH_DEPTH = 64
+
+#: Rejection rounds of ``sample_gamma``.  Marsaglia–Tsang accepts a draw
+#: with probability at least 0.9516 for every shape a >= 1 (the least at
+#: a = 1; 0.9608 at a = 1.15, the root_dist_alpha 0.15 that the configs
+#: use, boosted).  After 12 rounds the chance that any of B x A = 768 x 525
+#: entries is still pending is at most 768 * 525 * (1 - 0.9516)**12 =
+#: 6.6e-11.
+GAMMA_ROUNDS = 12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,14 +85,17 @@ class SearchResults:
 
 def sample_gamma(rng: torch.Generator, alpha: float, shape, device) -> torch.Tensor:
     """Gamma(alpha, 1) draws from ``rng``: Marsaglia–Tsang on alpha + 1,
-    boosted by U^(1/alpha) when alpha < 1.  Rejected entries are redrawn
-    until all are accepted (the host checks once per round)."""
+    boosted by U^(1/alpha) when alpha < 1.  Every round draws the whole
+    shape and each entry keeps its first accepted value, so the values are
+    those of redrawing until all are accepted; the rounds are a fixed
+    ``GAMMA_ROUNDS``, and an entry still pending after them is an overflow
+    (``graphs.overflowed``), never a truncation."""
     a = alpha + 1.0 if alpha < 1.0 else alpha
     d = a - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
     out = torch.zeros(shape, device=device)
     pending = torch.ones(shape, dtype=torch.bool, device=device)
-    while True:
+    for _ in range(GAMMA_ROUNDS):
         x = torch.randn(shape, generator=rng, device=device)
         u = torch.rand(shape, generator=rng, device=device)
         v = (1.0 + c * x) ** 3
@@ -90,8 +104,7 @@ def sample_gamma(rng: torch.Generator, alpha: float, shape, device) -> torch.Ten
         )
         out = torch.where(pending & accept, d * v, out)
         pending = pending & ~accept
-        if not bool(pending.any()):
-            break
+    graphs.overflowed(pending.any(), f"the gamma sampler's {GAMMA_ROUNDS} rounds")
     if alpha < 1.0:
         u = torch.rand(shape, generator=rng, device=device)
         out = out * u.pow(1.0 / alpha)
@@ -164,20 +177,26 @@ def _descend(tree: Tree, params: SearchParams, depth_cap: int):
     stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     path = torch.full((B, depth_cap), N, dtype=torch.int32, device=dev)
-    for depth in range(depth_cap):
+    depth = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+
+    def step():
+        """One depth step, in place; a no-op once no game is active."""
         n = node.long()
-        path[:, depth] = torch.where(active, node, path[:, depth])
+        # Each column is written at its own depth only, so it still holds N.
+        path.scatter_(1, depth, torch.where(active, node, N)[:, None])
         can_continue = tree.expanded[bi, n] & ~tree.is_terminal[bi, n]
         action = torch.argmax(_puct_scores(tree, node, params), dim=-1).to(torch.int32)
         action = torch.where(can_continue, action, 0)
         child = tree.child[bi, n, action.long()]
         follow = can_continue & (child != -1)
-        node = torch.where(active & follow, child, node)
-        sel_action = torch.where(active, action, sel_action)
-        stopped = torch.where(active, ~follow, stopped)
-        active = active & follow
-        if not bool(active.any()):
-            break
+        node.copy_(torch.where(active & follow, child, node))
+        sel_action.copy_(torch.where(active, action, sel_action))
+        stopped.copy_(torch.where(active, ~follow, stopped))
+        active.logical_and_(follow)
+        depth.add_(1)
+
+    step()
+    graphs.run_while(active.any, step, depth_cap - 1)
     # A depth-capped exit re-contributes the frontier node's evaluation
     # without allocating (its path slot was never recorded).
     capped = ~stopped

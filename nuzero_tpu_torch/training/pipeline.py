@@ -7,7 +7,11 @@ exploration, then per training step self-play until the step's games
 finish, the learner's updates (the samples or the epochs method), a
 journal record and, every ``save_frequency`` steps, a checkpoint.  Self-
 play, replay and SGD all work on tensors on the env's device; the host
-loop sequences them and does the IO.
+loop sequences them and does the IO.  On the card each self-play move is
+a replay of a CUDA graph of the move (``selfplay.capture_selfplay_step``,
+captured at first use), which reads nothing on the host; the loop reads a
+move-batch's finished count and overflow flag ``PIPELINE_DEPTH`` batches
+later.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 option: the asynchronous running mode, in-loop tests and early testing
@@ -32,7 +36,9 @@ from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.search.mcts import SearchParams
 from nuzero_tpu_torch.training import replay as replay_lib
 from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, TrainState
-from nuzero_tpu_torch.training.selfplay import init_selfplay, make_selfplay_step
+from nuzero_tpu_torch.training.selfplay import (
+    capture_selfplay_step, init_selfplay, make_selfplay_step, play_in_place,
+)
 from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nuzero_tpu_torch.utils.metrics import MetricsJournal, PrintBar
 from nuzero_tpu_torch.utils.packing import make_packer
@@ -147,6 +153,10 @@ class AlphaZero:
             self.state_dim, env.num_actions, device=self.device,
         )
         self._sp_batches = 0  # move-batches launched this step (throughput)
+        # The CUDA graph of each self-play step (card only), and the memory
+        # pool they share: they never run at once.
+        self._graphs = {}
+        self._pool = None
 
     # -- phases --------------------------------------------------------------
 
@@ -165,32 +175,57 @@ class AlphaZero:
         enc, pol, val, gt = replay_lib.gather(self.buffer, idx)
         return self._observe(enc), pol, val, gt
 
+    def _mover(self, step_fn, sp, params):
+        """A function that plays one move of every game of ``sp`` in place ->
+        (FinishedGames, stats, overflow flag): on the card a replay of the
+        move's CUDA graph (captured at first use, its parameters loaded from
+        ``params``), elsewhere the eager step (whose bounded loops raise at
+        once, so its flag stays False)."""
+        if self.device.type != "cuda":
+            flag = torch.zeros((), dtype=torch.bool, device=self.device)
+            return lambda: (*play_in_place(step_fn, params, sp), flag)
+        graph = self._graphs.get(step_fn)
+        if graph is None or graph.sp is not sp:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = self._graphs[step_fn] = capture_selfplay_step(step_fn, params, sp,
+                                                                  self._pool)
+        graph.load_params(params)
+        return lambda: (*graph.replay(), graph.overflow)
+
     def _selfplay_until(self, state, sp, step_fn, target_games: int, progress=None):
-        """Run lockstep move-batches until ``target_games`` finish.  The
-        finished count the loop reads lags PIPELINE_DEPTH batches behind, so
-        up to that many extra move-batches run past the target; their games
-        land in the buffer and in the returned total."""
+        """Run lockstep move-batches of ``sp`` (in place) until
+        ``target_games`` finish -> (games, stats of the last batch).  The
+        finished count and the overflow flag the loop reads lag
+        PIPELINE_DEPTH batches behind, so up to that many extra move-batches
+        run past the target; their games land in the buffer and in the
+        returned total."""
+        move = self._mover(step_fn, sp, state.params)
         done = 0
         stats = {}
         pending: collections.deque = collections.deque()
 
-        def settle(finished_count):
+        def settle(counts):
             nonlocal done
-            n = int(finished_count)
+            n, overflow = counts.tolist()
+            if overflow:
+                raise OverflowError("self-play: a loop bounded for the move's CUDA graph "
+                                    "ran past its bound")
             done += n
             if progress is not None and n:
                 progress(n)
 
         while done < target_games:
-            sp, finished, stats = step_fn(state.params, sp)
+            finished, stats, overflow = move()
             self._sp_batches += 1
             self.buffer = replay_lib.add_games(self.buffer, finished)
-            pending.append(stats["finished"])
+            pending.append(torch.stack([stats["finished"].to(torch.int64),
+                                        overflow.to(torch.int64)]))
             if len(pending) > self.PIPELINE_DEPTH:
                 settle(pending.popleft())
-        for f in pending:
-            settle(f)
-        return sp, done, stats
+        for counts in pending:
+            settle(counts)
+        return done, stats
 
     def _train_once(self, state: TrainState):
         cfg = self.cfg.learning
@@ -249,7 +284,7 @@ class AlphaZero:
         if cfg.running.early_fill_per_type > 0 and starting_step == 0:
             t0 = time.time()
             bar = PrintBar("early fill", cfg.running.early_fill_per_type)
-            sp, total, _ = self._selfplay_until(
+            total, _ = self._selfplay_until(
                 state, sp, self.sp_step_early, cfg.running.early_fill_per_type,
                 progress=bar.next)
             bar.finish()
@@ -261,7 +296,7 @@ class AlphaZero:
             t0 = time.time()
             self._sp_batches = 0
             with timers.phase("selfplay"):
-                sp, games, sp_stats = self._selfplay_until(
+                games, sp_stats = self._selfplay_until(
                     state, sp, self.sp_step, cfg.running.num_games_per_type_per_step)
             with timers.phase("train"):
                 state, tr_metrics = self._train_once(state)
@@ -273,7 +308,7 @@ class AlphaZero:
                 "buffer_positions": int(self.buffer.num_positions),
                 # Insertion count at this step (the step_to_size_map equivalent
                 # for partial buffer loads, ref ReplayBuffer.py:64-104).
-                "buffer_seq": self.buffer.games_added,
+                "buffer_seq": int(self.buffer.games_added),
                 "updates": state.step,
                 "loss/combined": float(tr_metrics.get("loss/combined", np.nan)),
                 "loss/policy": float(tr_metrics.get("loss/policy", np.nan)),
@@ -300,8 +335,7 @@ class AlphaZero:
                     tree = {"params": state.params, "opt_state": state.opt_state,
                             "step": state.step}
                     if cfg.saving.save_buffer:
-                        tree["buffer"] = {f.name: getattr(self.buffer, f.name)
-                                          for f in dataclasses.fields(self.buffer)}
+                        tree["buffer"] = replay_lib.to_tree(self.buffer)
                     save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
         return state
 
@@ -321,8 +355,7 @@ class AlphaZero:
         # or the action count.
         with_buffer = self.cfg.saving.save_buffer and ckpt.load_buffer
         if with_buffer:
-            target["buffer"] = {f.name: getattr(self.buffer, f.name)
-                                for f in dataclasses.fields(self.buffer)}
+            target["buffer"] = replay_lib.to_tree(self.buffer)
         tree, step = restore_checkpoint(
             os.path.join(self.run_dir, "checkpoints"), step, target, device=self.device)
         if with_buffer and "buffer" in tree:

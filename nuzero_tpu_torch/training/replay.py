@@ -11,9 +11,12 @@ JAX package does.  Value targets are the game's terminal value over its
 positions.
 
 Unlike the JAX buffer, this one is updated in place (``add_games`` writes
-into the existing tensors rather than returning a copy of gigabytes), and
-its ring pointer and insertion count are host integers.  Random draws
-come from an explicit ``torch.Generator`` on the buffer's device.
+into the existing tensors rather than returning a copy of gigabytes).  As
+in the JAX buffer, the ring pointer and the insertion count are 0-d device
+tensors and ``add_games`` reads nothing on the host, so that self-play can
+run ahead of the host; a checkpoint holds them as plain integers
+(``to_tree``; ``ReplayBuffer(**tree)`` reads it back).  Random draws come from an explicit
+``torch.Generator`` on the buffer's device.
 """
 
 from __future__ import annotations
@@ -43,8 +46,15 @@ class ReplayBuffer:
     length: torch.Tensor  # i32[G] 0 = empty slot
     game_type: torch.Tensor  # i32[G]
     seq: torch.Tensor  # i32[G] insertion sequence number (-1 = empty)
-    ptr: int  # next ring slot
-    games_added: int  # total games ever added
+    ptr: torch.Tensor  # i64 0-d: next ring slot
+    games_added: torch.Tensor  # i64 0-d: total games ever added
+
+    def __post_init__(self):
+        # Integers (a checkpoint's, truncate_to_seq's) become device tensors.
+        for name in ("ptr", "games_added"):
+            value = getattr(self, name)
+            if not isinstance(value, torch.Tensor):
+                setattr(self, name, torch.tensor(int(value), device=self.length.device))
 
     @property
     def capacity(self) -> int:
@@ -52,7 +62,8 @@ class ReplayBuffer:
 
     @property
     def num_games(self) -> int:
-        return min(self.games_added, self.capacity)
+        """Games held; reads the insertion count on the host."""
+        return min(int(self.games_added), self.capacity)
 
     @property
     def num_positions(self) -> torch.Tensor:
@@ -84,31 +95,53 @@ def create_buffer(
     )
 
 
+def to_tree(buffer: ReplayBuffer) -> dict:
+    """The buffer as a checkpoint's dict, the ring pointer and insertion
+    count as plain integers (reads them on the host)."""
+    tree = {f.name: getattr(buffer, f.name) for f in dataclasses.fields(buffer)}
+    tree["ptr"], tree["games_added"] = int(buffer.ptr), int(buffer.games_added)
+    return tree
+
+
 def add_games(buffer: ReplayBuffer, finished: FinishedGames) -> ReplayBuffer:
     """Write the real rows of ``finished`` (``mask``) into the next ring
     slots, in row order; masked-out rows are dropped, and of more real rows
-    than the ring holds only the last ``capacity`` stay.  In place; returns
-    the buffer."""
-    rows = torch.nonzero(finished.mask).squeeze(1)  # reads the count on the host
-    n = rows.numel()
-    if n == 0:
-        return buffer
+    than the ring holds only the last ``capacity`` stay.  In place, with no
+    host read (the JAX buffer's masked scatter: a row's slot follows from
+    its rank among the real rows, by ``cumsum``); returns the buffer.
+
+    Every row writes, so that no count is needed: a row that is not kept
+    writes the last kept row's data to that row's slot, or, when no row is
+    kept, the slot's own content back; no slot is written two different
+    values."""
     G, L = buffer.capacity, buffer.states.shape[1]
+    B = finished.mask.shape[0]
     dev = buffer.length.device
-    offset = torch.arange(n, device=dev)
-    if n > G:
-        rows, offset = rows[n - G:], offset[n - G:]
-    slot = (buffer.ptr + offset) % G
-    length = finished.length[rows]
+    m = finished.mask
+    rank = torch.cumsum(m.to(torch.int64), 0) - 1  # among the real rows
+    n = rank[-1] + 1
+    kept = m & (rank >= n - G)
+    rows = torch.arange(B, device=dev)
+    last = torch.argmax(torch.where(kept, rows, -1))  # 0 when none is kept
+    src = torch.where(kept, rows, last)
+    any_kept = kept[last]
+    slot = (buffer.ptr + rank[src]) % G
+
+    def put(table, values):
+        # values [B, ...] of the rows ``src``; all rows share one slot when
+        # none is kept, and that slot keeps its content.
+        table[slot] = torch.where(any_kept, values, table[slot[:1]])
+
+    length = finished.length[src]
     pos_valid = torch.arange(L, device=dev)[None, :] < length[:, None]
-    buffer.states[slot] = finished.states[rows]
-    buffer.policy[slot] = finished.policy[rows]
-    buffer.value[slot] = torch.where(pos_valid, finished.final_value[rows][:, None], 0.0)
-    buffer.length[slot] = length.to(torch.int32)
-    buffer.game_type[slot] = finished.game_type[rows].to(torch.int32)
-    buffer.seq[slot] = (buffer.games_added + offset).to(torch.int32)
-    buffer.ptr = (buffer.ptr + n) % G
-    buffer.games_added += n
+    put(buffer.states, finished.states[src])
+    put(buffer.policy, finished.policy[src])
+    put(buffer.value, torch.where(pos_valid, finished.final_value[src][:, None], 0.0))
+    put(buffer.length, length.to(torch.int32))
+    put(buffer.game_type, finished.game_type[src].to(torch.int32))
+    put(buffer.seq, (buffer.games_added + rank[src]).to(torch.int32))
+    buffer.ptr.copy_((buffer.ptr + n) % G)
+    buffer.games_added.add_(n)
     return buffer
 
 
@@ -124,7 +157,7 @@ def truncate_to_seq(buffer: ReplayBuffer, seq_limit: int) -> ReplayBuffer:
         length=torch.where(keep, buffer.length, 0),
         seq=torch.where(keep, buffer.seq, -1),
         game_type=torch.where(keep, buffer.game_type, 0),
-        games_added=min(buffer.games_added, seq_limit),
+        games_added=buffer.games_added.clamp(max=seq_limit),
         ptr=seq_limit % buffer.capacity,
     )
 
@@ -143,8 +176,9 @@ def position_weights(buffer: ReplayBuffer, late_heavy: bool) -> torch.Tensor:
     valid = _valid(buffer)
     if not late_heavy:
         return valid.to(torch.float32)
-    num = float(max(buffer.num_games, 1))
-    oldest = buffer.games_added - buffer.num_games  # seq of the oldest retained
+    num_games = buffer.games_added.clamp(max=buffer.capacity)
+    num = num_games.clamp(min=1).to(torch.float32)
+    oldest = buffer.games_added - num_games  # seq of the oldest retained
     rank = (buffer.seq - oldest + 1).to(torch.float32) / num
     variation = 0.5
     w = (1.0 - variation) / 2.0 + variation * rank

@@ -11,6 +11,10 @@ trees re-rooted at the played actions.
 The trajectory buffers and trees are updated in place.  ``FinishedGames``
 views the live buffers: consume or copy it before the next step, which
 starts overwriting the rows of the games it reset.
+
+On the card a move is captured once as a CUDA graph and replayed
+(``capture_selfplay_step``): the move then runs with no host read, its
+data-dependent loops held as while-nodes (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from nuzero_tpu_torch.envs.base import select_state
 from nuzero_tpu_torch.search.mcts import Draws, SearchParams, make_search_fn
 from nuzero_tpu_torch.search.tree import Tree, init_tree, reroot
 from nuzero_tpu_torch.training.replay import FinishedGames
+from nuzero_tpu_torch.utils import graphs
 from nuzero_tpu_torch.utils.packing import make_packer
 
 
@@ -173,3 +178,126 @@ def make_selfplay_step(
         return new_sp, finished, stats
 
     return step
+
+
+def _rebuilt(sp: SelfplayState):
+    """The tensors of ``sp`` that a step returns anew rather than updating
+    in place."""
+    yield from (getattr(sp.games, f.name) for f in dataclasses.fields(sp.games))
+    yield from (sp.move_count, sp.total_moves, sp.total_games)
+    if sp.tree_valid is not None:
+        yield sp.tree_valid
+
+
+def play_in_place(step, variables, sp: SelfplayState):
+    """One move of ``step`` whose new state is copied back into ``sp``'s own
+    tensors -> (FinishedGames, stats).  ``sp`` then stays the one state
+    object of a run, as a CUDA graph of the move needs."""
+    new, finished, stats = step(variables, sp)
+    if new.tree is not sp.tree:
+        raise AssertionError("the step replaced the search trees instead of updating them")
+    for dst, src in zip(_rebuilt(sp), _rebuilt(new)):
+        if dst is not src:
+            dst.copy_(src)
+    return finished, stats
+
+
+def move_tensors(sp: SelfplayState, finished: FinishedGames, stats: dict) -> dict:
+    """Every tensor that one move writes, by name, and the generator's
+    state: what a replay of the move must reproduce.  ``finished.states``
+    and ``.policy`` are ``sp``'s buffers and are named once."""
+    out = {f"games.{k}": v for k, v in vars(sp.games).items()}
+    if sp.tree is not None:
+        out.update({f"tree.{k}": v for k, v in vars(sp.tree).items()})
+    out.update({k: getattr(sp, k) for k in ("state_buf", "policy_buf", "move_count",
+                                            "total_moves", "total_games", "tree_valid")
+                if getattr(sp, k) is not None})
+    out.update({f"finished.{k}": v for k, v in vars(finished).items()
+                if k not in ("states", "policy")})
+    out.update({f"stats.{k}": v for k, v in stats.items()})
+    out["rng"] = sp.rng.get_state()
+    return out
+
+
+def _copy_selfplay(sp: SelfplayState) -> SelfplayState:
+    """A deep copy of ``sp``, generator state included."""
+    rng = torch.Generator(device=sp.rng.device)
+    rng.set_state(sp.rng.get_state())
+
+    def copy(obj):
+        return type(obj)(**{f.name: getattr(obj, f.name).clone()
+                            for f in dataclasses.fields(obj)})
+
+    return dataclasses.replace(
+        sp, games=copy(sp.games), state_buf=sp.state_buf.clone(),
+        policy_buf=sp.policy_buf.clone(), move_count=sp.move_count.clone(), rng=rng,
+        total_moves=sp.total_moves.clone(), total_games=sp.total_games.clone(),
+        tree=None if sp.tree is None else copy(sp.tree),
+        tree_valid=None if sp.tree_valid is None else sp.tree_valid.clone(),
+    )
+
+
+class SelfplayGraph:
+    """One self-play move captured as a CUDA graph (``capture_selfplay_step``).
+
+    ``replay()`` plays one move of every game of ``sp`` in place and returns
+    ``(FinishedGames, stats)``: tensors the graph owns, which the next
+    replay overwrites.  The graph reads its own parameter dict, ``params``;
+    ``load_params`` copies a learner's parameters into it.  ``overflow`` is
+    the move's device flag, set where a bounded loop ran out of trips;
+    ``check_overflow()`` reads it and raises.  Nothing is read on the host
+    inside a replay."""
+
+    def __init__(self, graph, params, sp, finished, stats, overflow):
+        self.graph = graph
+        self.params = params
+        self.sp = sp
+        self.finished = finished
+        self.stats = stats
+        self.overflow = overflow
+
+    def load_params(self, variables) -> None:
+        for name, t in self.params.items():
+            t.copy_(variables[name])
+
+    def replay(self):
+        self.graph.replay()
+        return self.finished, self.stats
+
+    def check_overflow(self) -> None:
+        if bool(self.overflow):
+            raise OverflowError("self-play move: a loop bounded for the CUDA graph ran past "
+                                "its bound")
+
+
+def capture_selfplay_step(step, variables, sp: SelfplayState, pool=None) -> SelfplayGraph:
+    """Capture one move of ``step`` (from ``make_selfplay_step``) on ``sp``
+    as a CUDA graph; ``sp`` must lie on a CUDA device, and a failed capture
+    raises.  ``variables`` gives the graph's parameters their values and
+    shapes; ``pool`` (``torch.cuda.graph_pool_handle()``) lets graphs that
+    never run at once share memory.
+
+    One eager move of a copy of ``sp`` runs first, on a side stream, as
+    ``torch.cuda.graphs`` asks: it builds the kernels and fills the step's
+    fresh-game cache.  It plays the first replay's move, so an overflow it
+    meets the first replay reports; its own flag is dropped.  ``sp`` and
+    its generator are left as they were, and the generator is registered
+    with the graph, so replay k plays what the eager step's k-th move from
+    ``sp`` would."""
+    dev = sp.move_count.device
+    if dev.type != "cuda":
+        raise ValueError(f"a CUDA graph of the move needs its state on a CUDA device, not {dev}")
+    params = {name: t.detach().clone() for name, t in variables.items()}
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        dropped = torch.zeros((), dtype=torch.bool, device=dev)
+        with torch.cuda.stream(side), graphs.overflow_into(dropped):
+            step(params, _copy_selfplay(sp))
+        torch.cuda.current_stream().wait_stream(side)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(sp.rng)
+        with graphs.capture(graph, pool=pool, overflow=overflow):
+            finished, stats = play_in_place(step, params, sp)
+    return SelfplayGraph(graph, params, sp, finished, stats, overflow)

@@ -7,15 +7,25 @@ also runs on a card machine without them:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from nuzero_tpu_torch.envs.scs.game import SCSGame
+from nuzero_tpu_torch.envs.scs.scenario import load_scenario
 from nuzero_tpu_torch.networks.blocks import HexConv, OrthoConv
+from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
 from nuzero_tpu_torch.ops.cuda.measure import BACKWARD_RAGGED, RAGGED, conv_shapes
+from nuzero_tpu_torch.search import mcts
+from nuzero_tpu_torch.training.selfplay import (
+    capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
+)
+from nuzero_tpu_torch.utils import graphs
 
 # (Cin, Cout) of the 17 convs of one 256-filter RecurrentNet evaluation.
 LEG_256F = [(86, 256), (342, 256), (256, 256), (256, 138), (138, 21),
@@ -282,3 +292,105 @@ def test_recurrent_net_grad_matches_cpu(cuda_card):
     assert hexconv_kernel.launch_count[hexconv_kernel.DW_KERNELS[torch.float32]] == 1 + 3 * 5 + 6
     for k in want:
         assert (got[k] - want[k]).abs().max().item() <= 1e-4 * want[k].abs().max().item(), k
+
+
+SCENARIO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "scenarios", "open_field_5.yml")
+
+
+def _selfplay(dtype, seed=1):
+    """A small self-play setup on the card: SCS open_field_5, B=4, an
+    8-filter net, 3 simulations with carried trees, training draws."""
+    env = SCSGame(load_scenario(SCENARIO, seed=42), device="cuda")
+    mgr = NetworkManager(RecurrentNet(env.observation_shape[0], env.action_space_shape[0],
+                                      num_filters=8, num_blocks=2, recall=True, hex=True,
+                                      dtype=dtype).cuda(), env.observation_shape)
+
+    def apply(variables, obs):
+        p, v, _ = mgr.apply(variables, obs, iters_to_do=2)
+        return p, v
+
+    params = mcts.SearchParams(num_simulations=3)
+    step = make_selfplay_step(env, apply, params, training=True)
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+    sp = init_selfplay(env, 4, torch.Generator(device="cuda").manual_seed(seed),
+                       search_params=params)
+    return step, variables, sp
+
+
+def _snapshot(sp, finished, stats):
+    return {k: v.clone() for k, v in move_tensors(sp, finished, stats).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_replayed_moves_equal_eager_moves(cuda_card, dtype):
+    """Three replays of the captured move equal three eager moves from the
+    same state and generator state, bit for bit, with no host read inside
+    a replay."""
+    step, variables, eager_sp = _selfplay(dtype)
+    _, _, graph_sp = _selfplay(dtype)
+    want = [_snapshot(eager_sp, *play_in_place(step, variables, eager_sp)) for _ in range(3)]
+    graph = capture_selfplay_step(step, variables, graph_sp)
+    got = []
+    for _ in range(3):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got.append(_snapshot(graph_sp, finished, stats))
+    graph.check_overflow()
+    for move, (g, w) in enumerate(zip(got, want)):
+        for name in w:
+            assert torch.equal(g[name], w[name]), f"move {move}: {name}"
+
+
+@pytest.mark.cuda
+def test_run_while_runs_on_the_device_until_its_condition_or_bound(cuda_card):
+    """One capture, replayed with the loop's limit 0, 5 and past the bound
+    of 8 trips: the body is skipped, runs 5 times, stops at 8."""
+    y = torch.zeros((), device="cuda")
+    x = torch.zeros((), device="cuda")
+    limit = torch.zeros((), device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with graphs.capture(graph):
+        y.zero_()
+        graphs.run_while(lambda: y < limit, lambda: y.add_(1), 8)
+        x.copy_(y + 100)
+    got = []
+    for value in (0.0, 5.0, 100.0):
+        limit.fill_(value)
+        graph.replay()
+        got.append((y.item(), x.item()))
+    assert got == [(0.0, 100.0), (5.0, 105.0), (8.0, 108.0)]
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_a_cpu_tensor(cuda_card):
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(ValueError, match="0-d bool CUDA tensor"):
+        with graphs.capture(graph):
+            graphs.run_while(lambda: torch.tensor(True), lambda: None, 1)
+    step, variables, _ = _selfplay(torch.float32)
+    env = SCSGame(load_scenario(SCENARIO, seed=42), device="cpu")
+    sp = init_selfplay(env, 4, torch.Generator().manual_seed(1),
+                       search_params=mcts.SearchParams(num_simulations=3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        capture_selfplay_step(step, variables, sp)
+
+
+@pytest.mark.cuda
+def test_an_overflow_raises_after_the_replay(cuda_card, monkeypatch):
+    """One gamma round cannot accept every root-noise entry: the eager
+    move raises at once; the replay sets the flag on the device and
+    ``check_overflow`` raises after it."""
+    monkeypatch.setattr(mcts, "GAMMA_ROUNDS", 1)
+    step, variables, sp = _selfplay(torch.float32)
+    with pytest.raises(OverflowError, match="gamma"):
+        step(variables, _selfplay(torch.float32)[2])
+    graph = capture_selfplay_step(step, variables, sp)
+    graph.check_overflow()  # not set before a replay
+    graph.replay()
+    with pytest.raises(OverflowError, match="self-play move"):
+        graph.check_overflow()

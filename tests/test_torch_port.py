@@ -240,6 +240,17 @@ def test_chip_smoke_union_ms(intervals, ms):
     assert chip_smoke.union_ms(intervals) == pytest.approx(ms)
 
 
+def test_chip_smoke_idle_gaps():
+    """Idle time between kernels, counted once where kernels overlap, and
+    charged to the kernel before the gap."""
+    kernels = [{"ts": 0, "dur": 10, "name": "a(int)"}, {"ts": 5, "dur": 20, "name": "b(x)"},
+               {"ts": 1025, "dur": 5, "name": "a(int)"}, {"ts": 1033, "dur": 1, "name": "c"},
+               {"ts": 3034, "dur": 1, "name": "d"}]
+    assert chip_smoke.idle_gaps(kernels) == (
+        "idle between kernels 3.0 ms over 4 gaps, 2 gaps over 10 us sum to 3.0 ms; most "
+        "idle after: c 2.0 ms, b 1.0 ms, a 0.0 ms")
+
+
 def test_chip_smoke_backward_ragged_shapes():
     """The backward's ragged cases: dW with Cin 1 and 21 and Cout 1 and 342;
     dX (Cin and Cout swapped) with Cin 1 and 21 and Cout 342, 150, 138 and
