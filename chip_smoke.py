@@ -78,6 +78,34 @@ The training half:
    learner updates on the filled buffer and profiles one (device busy
    time, idle share, hex-conv forward, dX and dW device time).
 
+The non-recurrent networks, Tic-Tac-Toe and the evaluation layer:
+
+9. zoo: ``ConvNet(num_layers=2)`` and ``ResNet(num_blocks=4)``, hex, at
+   256f bf16 B=768 and 64f f32 B=512 on ``open_field_5.yml`` observations,
+   and ``MLPNetwork`` (``run.py`` preset 0) on Tic-Tac-Toe at B=4096: each
+   against the same weights on the CPU (plain path) on 8 positions, the
+   hex-conv launches of one evaluation (9 and 15), ms per evaluation;
+10. TTT self-play, ``MLPNetwork``, ``ttt_search.yaml`` (100 simulations,
+   carried trees), B=1024 and B=4096 (``bench.py``'s TTT legs): four eager
+   moves, then the captured move and four replays under sync debug mode
+   "error", each equal bit for bit to the eager move, env-steps/s of both;
+11. evaluation on SCS at full width (``solo_scout_5.yml``):
+   ``TestManager.run_test_batch`` with ``PolicyAgent`` (RecurrentNet 256f
+   bf16, 2 iterations) against ``GoalRushAgent``, 256 games from each seat,
+   then ``MctsAgent`` (30 simulations) against ``GoalRushAgent`` cut as
+   ``ARENA_CUTS`` says, and ``PolicyAgent`` on ``open_field_5.yml``, where
+   both players own units, cut as ``ARENA_BOTH`` says; every played action
+   legal, wins + losses + draws = games, network evaluations in every seat
+   where the agent decides, 17 hex-conv launches per ``PolicyAgent``
+   evaluation, seconds per arena move;
+12. TTT training through ``AlphaZero.run()`` on ``ttt_default.yaml`` and
+   ``ttt_search.yaml`` with the MLP, cut to ``TTT_STEPS`` steps, plots off,
+   in-loop tests as configured (early, policy every 25, MCTS every 50,
+   asynchronous): each step's self-play, train and eval seconds; every
+   ``wr/*`` and ``nonloss/*`` key at steps 0, 25 and 50 under the async
+   harvest's launch steps, finite losses, changed parameters, the
+   captured self-play graph, and a checkpoint that restores equal.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -129,6 +157,23 @@ TRAIN_CUTS = {"training_steps": 3, "save_frequency": 3, "num_actors": 128,
               "in-loop tests": "off", "plots": "off"}
 GRAD_BATCH = 16
 TIMED_UPDATES = 10
+# Phase 9: the MLP's TTT batch (the hex zoo runs at the self-play legs'
+# widths and batches, LEGS).
+MLP_BATCH = 4096
+# Phase 10: bench.py's TTT legs.
+TTT_BATCHES = (1024, 4096)
+TTT_SEARCH = "configs/search/ttt_search.yaml"
+TTT_CONFIG = "configs/training/ttt_default.yaml"
+# Phase 11: the arena legs on solo_scout_5.yml (the scenario's cap is 70
+# moves); the MCTS leg is cut in games and moves.
+ARENA_SCENARIO = "solo_scout_5.yml"
+ARENA_GAMES = 256
+ARENA_CUTS = {"games": 32, "max_moves": 24, "num_simulations": 30}
+# A PolicyAgent leg where both players own units, so that both seats'
+# agent paths run (open_field_5.yml caps a game at 622 moves).
+ARENA_BOTH = {"scenario": "open_field_5.yml", "games": 256, "max_moves": 48}
+# Phase 12: the training run's cut of ttt_default.yaml (600 steps).
+TTT_STEPS = 50
 
 
 def log(*args):
@@ -857,6 +902,360 @@ def training_run(card):
     return counts
 
 
+def mlp_manager(env):
+    """``run.py`` preset 0's network: ``MLPNetwork(out_features=9)``."""
+    from nuzero_tpu_torch.networks.manager import NetworkManager
+    from nuzero_tpu_torch.networks.mlp import MLPNetwork
+
+    return NetworkManager(MLPNetwork(env.observation_shape, env.num_actions).to(env.device),
+                          env.observation_shape)
+
+
+def zoo_nets(env, filters, dtype):
+    """(name, manager, hex convs per evaluation) of the hex zoo at a width."""
+    from nuzero_tpu_torch.networks.convnet import ConvNet
+    from nuzero_tpu_torch.networks.manager import NetworkManager
+    from nuzero_tpu_torch.networks.resnet import ResNet
+
+    c, a = env.observation_shape[0], env.action_space_shape[0]
+    return [
+        ("ConvNet(num_layers=2)", NetworkManager(
+            ConvNet(c, a, num_filters=filters, num_layers=2, dtype=dtype).to(env.device),
+            env.observation_shape), 1 + 2 + 2 + 4),
+        ("ResNet(num_blocks=4)", NetworkManager(
+            ResNet(c, a, num_filters=filters, num_blocks=4, dtype=dtype).to(env.device),
+            env.observation_shape), 1 + 2 * 4 + 2 + 4),
+    ]
+
+
+def random_positions(env, batch, gen, moves=6):
+    """``batch`` states after ``moves`` uniform legal moves each."""
+    from nuzero_tpu_torch.evaluation.agents import uniform_legal
+
+    states = env.init(batch)
+    for _ in range(moves):
+        states = env.step(states, uniform_legal(env.legal_mask(states), gen))
+    return states
+
+
+def compare_cpu(label, mgr, cpu_mgr, variables, obs, rel):
+    """The net on the card against the same weights on the CPU (plain path)."""
+    import torch
+
+    with torch.no_grad():
+        p, v, _ = mgr.apply(variables, obs)
+        p_ref, v_ref, _ = cpu_mgr.apply({k: t.cpu() for k, t in variables.items()}, obs.cpu())
+    torch.cuda.synchronize()
+    for got, want, name in ((p, p_ref, "logits"), (v, v_ref, "value")):
+        got = got.cpu().float()
+        want = want.float()
+        if not (got.shape == want.shape and torch.isfinite(got).all()):
+            raise AssertionError(f"{label} {name}: bad shape or non-finite values")
+        err = (got - want).abs().max().item()
+        scale = max(want.abs().max().item(), 0.1)
+        if err > rel * scale:
+            raise AssertionError(f"{label} {name}: card vs CPU err {err} > {rel * scale}")
+        log(f"{label} {name}: card vs CPU max abs err {err:.3e} (scale {scale:.3e})")
+
+
+def zoo_check(card):
+    """Phase 9; returns the hex-conv launches of the timed evaluations."""
+    import torch
+
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    launches = {}
+    for filters, dtype_name, batch in LEGS:
+        dtype = getattr(torch, dtype_name)
+        env, cpu_env = make_env("cuda"), make_env("cpu")
+        obs = env.observe(random_positions(env, batch, gen))
+        for (name, mgr, convs), (_, cpu_mgr, _) in zip(zoo_nets(env, filters, dtype),
+                                                      zoo_nets(cpu_env, filters, dtype)):
+            label = f"{name} {filters}f {dtype_name}"
+            variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+            compare_cpu(label, mgr, cpu_mgr, variables, obs[:8],
+                        1e-4 if dtype == torch.float32 else 2e-2)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                hexconv_kernel.reset_launch_count()
+                mgr.apply(variables, obs)
+                torch.cuda.synchronize()
+                counts = dict(hexconv_kernel.launch_count)
+                want = {k: 0 for k in counts}
+                want[hexconv_kernel.KERNELS[dtype]] = convs
+                if counts != want:
+                    raise AssertionError(f"{label}: launches {counts}, expected {want}")
+                ms = time_ms(lambda: mgr.apply(variables, obs), 20)
+            launches[label] = convs
+            log(f"{label} B={batch}: {convs} hex-conv launches per evaluation, "
+                f"{ms:.4f} ms per evaluation  [{card}]")
+    env, cpu_env = TicTacToe("cuda"), TicTacToe("cpu")
+    mgr, cpu_mgr = mlp_manager(env), mlp_manager(cpu_env)
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+    obs = env.observe(random_positions(env, MLP_BATCH, gen, moves=4))
+    compare_cpu("MLPNetwork TTT f32", mgr, cpu_mgr, variables, obs[:8], 1e-4)
+    with torch.no_grad():
+        ms = time_ms(lambda: mgr.apply(variables, obs), 20)
+    log(f"MLPNetwork TTT f32 B={MLP_BATCH}: no hex conv, {ms:.4f} ms per evaluation  [{card}]")
+    return launches
+
+
+def ttt_selfplay_leg(batch, card):
+    """Phase 10 at one batch: the eager moves, then the same moves as
+    replays of the captured move from the same state and generator state."""
+    import torch
+
+    from nuzero_tpu_torch.config.schemas import load_search_config
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+    from nuzero_tpu_torch.training.selfplay import (
+        capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
+    )
+    from nuzero_tpu_torch.utils.packing import make_packer
+
+    env = TicTacToe("cuda")
+    mgr = mlp_manager(env)
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+    params = load_search_config(os.path.join(REPO, TTT_SEARCH))
+
+    def apply(v, obs):
+        p, val, _ = mgr.apply(v, obs)
+        return p, val
+
+    def fresh_state():
+        return init_selfplay(env, batch, torch.Generator(device="cuda").manual_seed(1),
+                             search_params=params)
+
+    def snapshot(sp, finished, stats):
+        return {k: v.clone() for k, v in move_tensors(sp, finished, stats).items()}
+
+    step = make_selfplay_step(env, apply, params, training=True)
+    _, unpack, dim = make_packer(env.init(1))
+    bi = torch.arange(batch, device="cuda")
+    label = f"TTT MLP B={batch} {params.num_simulations} sims"
+    sp = fresh_state()
+    eager, seconds = [], []
+    for move in range(MOVES):
+        row = sp.move_count.long()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished, stats = play_in_place(step, variables, sp)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        recorded = unpack(sp.state_buf[bi, row, :dim])
+        check_policy(sp.policy_buf[bi, row], env.legal_mask(recorded))
+        eager.append(snapshot(sp, finished, stats))
+        log(f"{label} eager move {move}: {seconds[-1]:.4f} s, "
+            f"finished {int(stats['finished'])}")
+    gsp = fresh_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = capture_selfplay_step(step, variables, gsp)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replayed = []
+    for move in range(MOVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        replayed.append(time.perf_counter() - t0)
+        got = snapshot(gsp, finished, stats)
+        differ = [k for k in eager[move] if not torch.equal(got[k], eager[move][k])]
+        if differ:
+            raise AssertionError(f"{label}: replay {move} differs from eager move {move} "
+                                 f"in {differ}")
+        log(f"{label} replay {move}: {replayed[-1]:.4f} s, equal to eager move {move} in "
+            f"all {len(got)} tensors, no host sync inside")
+    graph.check_overflow()
+    steady, steady_g = statistics.median(seconds[1:]), statistics.median(replayed[1:])
+    sims = params.num_simulations
+    log(f"{label}: capture {capture_s:.2f} s; replayed {steady_g:.4f} s/move, "
+        f"{batch * sims / steady_g:.1f} env-steps/s, against eager {steady:.4f} s/move, "
+        f"{batch * sims / steady:.1f} env-steps/s (medians of moves 2-{MOVES})  [{card}]")
+
+
+class CheckedAgent:
+    """An agent whose actions are checked against the legal mask in every
+    live game where its seat is on move (the arena is eager, so reading the
+    host here is allowed); counts what it checked."""
+
+    def __init__(self, agent, seat):
+        self.agent, self.seat = agent, seat
+        self.name = agent.name
+        self.variables = getattr(agent, "variables", None)
+        self.checked = self.illegal = 0
+
+    def policy(self, env):
+        import torch
+
+        inner = self.agent.policy(env)
+
+        def choose(variables, states, lengths, rng):
+            action = inner(variables, states, lengths, rng)
+            legal = env.legal_mask(states)
+            bi = torch.arange(action.shape[0], device=action.device)
+            mine = (env.current_player(states) == self.seat) & ~env.terminal(states)
+            self.checked += int(mine.sum())
+            self.illegal += int((mine & ~legal[bi, action.long()]).sum())
+            return action
+
+        return choose
+
+
+def arena_check(card):
+    """Phase 11; returns the hex-conv launches of the PolicyAgent batches."""
+    import torch
+
+    from nuzero_tpu_torch.envs.scs.game import SCSGame
+    from nuzero_tpu_torch.envs.scs.scenario import load_scenario
+    from nuzero_tpu_torch.evaluation.agents import GoalRushAgent, MctsAgent, PolicyAgent
+    from nuzero_tpu_torch.evaluation.manager import TestManager
+    from nuzero_tpu_torch.networks.manager import NetworkManager
+    from nuzero_tpu_torch.networks.recurrent import RecurrentNet
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.search.mcts import SearchParams
+
+    class CountingManager(NetworkManager):
+        evaluations = 0
+
+        def apply(self, *args, **kwargs):
+            CountingManager.evaluations += 1
+            return super().apply(*args, **kwargs)
+
+    def setup(scenario):
+        """(env, test manager, PolicyAgent, its weights) on ``scenario``."""
+        path = os.path.join(REPO, "configs", "scenarios", scenario)
+        env = SCSGame(load_scenario(path, seed=42), device="cuda")
+        net = RecurrentNet(env.observation_shape[0], env.action_space_shape[0],
+                           num_filters=256, num_blocks=2, recall=True, hex=True,
+                           dtype=torch.bfloat16).to("cuda")
+        mgr = CountingManager(net, env.observation_shape)
+        variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+        return env, TestManager(env), PolicyAgent(mgr, variables, 2), (mgr, variables)
+
+    rush = GoalRushAgent()
+    env, tm, policy, (mgr, variables) = setup(ARENA_SCENARIO)
+    mcts = MctsAgent(mgr, variables, SearchParams(num_simulations=ARENA_CUTS["num_simulations"]))
+    both = setup(ARENA_BOTH["scenario"])
+    kernel = hexconv_kernel.KERNELS[torch.bfloat16]
+    launches = 0
+    # (name, scenario, test manager, agent, games, max_moves, seats where the
+    # agent must decide): on solo_scout_5 player 0 owns no unit, so only
+    # seat 1's agent evaluates the network; on open_field_5 both seats do.
+    legs = (("policy", ARENA_SCENARIO, tm, policy, ARENA_GAMES, None, (1,)),
+            ("mcts", ARENA_SCENARIO, tm, mcts, ARENA_CUTS["games"], ARENA_CUTS["max_moves"],
+             (1,)),
+            ("policy", ARENA_BOTH["scenario"], both[1], both[2], ARENA_BOTH["games"],
+             ARENA_BOTH["max_moves"], (0, 1)))
+    for name, scenario, tm, agent, games, max_moves, deciding in legs:
+        for seat in (0, 1):
+            p0, p1 = CheckedAgent(agent if seat == 0 else rush, 0), CheckedAgent(
+                rush if seat == 0 else agent, 1)
+            CountingManager.evaluations = 0
+            torch.cuda.synchronize()
+            hexconv_kernel.reset_launch_count()
+            t0 = time.perf_counter()
+            stats = tm.run_test_batch(games, p0, p1, tm.generator(seat), show_results=False,
+                                      max_moves=max_moves)
+            seconds = time.perf_counter() - t0
+            count = hexconv_kernel.launch_count[kernel]
+            per_move = tm.last_arena.seconds_per_move
+            if p0.illegal or p1.illegal:
+                raise AssertionError(f"{name} seat {seat}: {p0.illegal + p1.illegal} illegal "
+                                     f"actions played")
+            if stats.p0_wins + stats.p1_wins + stats.draws != games:
+                raise AssertionError(f"{name} seat {seat}: outcomes do not sum to {games}")
+            evals = CountingManager.evaluations
+            if seat in deciding and not evals:
+                raise AssertionError(f"{name} seat {seat} on {scenario}: the agent never "
+                                     f"evaluated the network")
+            if name == "policy":
+                if count != CONVS_PER_EVAL * evals:
+                    raise AssertionError(f"{count} hex-conv launches for {evals} PolicyAgent "
+                                         f"evaluations, expected {CONVS_PER_EVAL} each")
+                launches += count
+            log(f"arena {name} (seat {seat}) vs goal_rush on {scenario}, {games} games"
+                + (f", max_moves {max_moves}" if max_moves else "")
+                + f": P1 {stats.p0_wins} / P2 {stats.p1_wins} / draws {stats.draws} "
+                f"(truncated {stats.truncated}), avg length {stats.avg_length:.1f}; "
+                f"{len(per_move)} arena moves, {p0.checked + p1.checked} actions checked "
+                f"legal; {evals} network evaluations, "
+                f"{count} hex-conv launches; {seconds:.2f} s, "
+                f"{statistics.median(per_move):.4f} s per arena move (median)  [{card}]")
+    return launches
+
+
+def ttt_training_run(card):
+    """Phase 12: ``ttt_default.yaml`` through ``AlphaZero.run()``."""
+    import torch
+
+    from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+    from nuzero_tpu_torch.training.pipeline import AlphaZero
+
+    cfg = load_training_config(os.path.join(REPO, TTT_CONFIG))
+    cfg = dataclasses.replace(
+        cfg, running=dataclasses.replace(cfg.running, training_steps=TTT_STEPS),
+        plotting=dataclasses.replace(cfg.plotting, plot_loss=False))
+    search = load_search_config(os.path.join(REPO, TTT_SEARCH))
+    t = cfg.testing
+    log(f"TTT training run: {TTT_CONFIG} + {TTT_SEARCH}, MLP, cut to {TTT_STEPS} steps, "
+        f"plot_loss off; tests early {t.early_testing}, policy every "
+        f"{t.policy_test_frequency}, MCTS every {t.mcts_test_frequency}, asynchronous "
+        f"{t.asynchronous_testing}")
+    env = TicTacToe("cuda")
+    mgr = mlp_manager(env)
+    with tempfile.TemporaryDirectory() as run_dir:
+        az = AlphaZero(env, mgr, cfg, search, run_dir=run_dir)
+        initial = az.learner.init_state(torch.Generator(device="cuda").manual_seed(0))
+        before = {k: v.clone() for k, v in initial.params.items()}
+        t0 = time.perf_counter()
+        state = az.run(seed=0, initial_state=initial)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        records = az.journal.load()
+        steps = [r for r in records if "games" in r]
+        tests = {r["step"]: r for r in records if r.get("async_test")}
+        if [r["step"] for r in steps] != list(range(1, TTT_STEPS + 1)):
+            raise AssertionError("missing training steps in the journal")
+        if not all(torch.isfinite(torch.tensor(r["loss/combined"])) for r in steps):
+            raise AssertionError("non-finite training losses")
+        if all(torch.equal(before[k], state.params[k]) for k in before):
+            raise AssertionError("the parameters did not change")
+        if len(az._graphs) != 2:
+            raise AssertionError(f"{len(az._graphs)} self-play graphs captured, expected 2")
+        want = {0: ("policy", "mcts"), 25: ("policy",), 50: ("policy", "mcts")}
+        for step, tags in want.items():
+            keys = {f"{m}/{tag}_as_p{s}" for tag in tags for m in ("wr", "nonloss")
+                    for s in (0, 1)}
+            if step not in tests or not keys <= set(tests[step]):
+                raise AssertionError(f"in-loop test keys missing at step {step}")
+            log(f"TTT in-loop tests at step {step} (async, harvested): " + ", ".join(
+                f"{k} {tests[step][k]:.4f}" for k in sorted(keys)))
+        if set(tests) != set(want):
+            raise AssertionError(f"async test records at steps {sorted(tests)}")
+        for r in steps:
+            log(f"TTT step {r['step']}: {r['games']} games, loss {r['loss/combined']:.4f}; "
+                f"self-play {r['time/selfplay']:.3f} s, train {r['time/train']:.3f} s, "
+                f"eval {r['time/eval']:.3f} s  [{card}]")
+        log(f"TTT training run: {seconds:.1f} s for {TTT_STEPS} steps, {state.step} updates, "
+            f"{az.buffer.games_added} games  [{card}]")
+        resumed = AlphaZero(env, mgr, cfg, search, run_dir=run_dir)
+        restored, step = resumed.load("auto")
+        if step != TTT_STEPS or restored.step != state.step:
+            raise AssertionError(f"restored step {step} / {restored.step}")
+        for k in state.params:
+            if not (torch.equal(restored.params[k], state.params[k])
+                    and torch.equal(restored.opt_state["trace"][k], state.opt_state["trace"][k])):
+                raise AssertionError(f"restored {k} differs")
+        log(f"TTT checkpoint of step {step} restored equal (params, SGD trace)")
+
 
 def main() -> int:
     import torch
@@ -1025,6 +1424,13 @@ def main() -> int:
             "max_abs_err": worst,
             **sums,
         })
+
+    # --- 9.-12. the zoo, Tic-Tac-Toe, the evaluation layer
+    zoo_check(card)
+    for batch in TTT_BATCHES:
+        ttt_selfplay_leg(batch, card)
+    arena_check(card)
+    ttt_training_run(card)
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -7,7 +7,9 @@ Parameters are f32; ``dtype`` is the compute dtype (bf16 runs the convs in
 bf16 with f32 accumulation).  Filter ramps reproduce the reference's
 ``int(width + k*step)`` arithmetic so parameter shapes line up.
 
-Only the ``"reduce"`` value head is ported so far.
+``BatchNorm`` is Flax's ``nn.BatchNorm`` as the JAX nets apply it outside
+training: the running mean and variance (buffers) normalize, epsilon 1e-5.
+The value heads ported are ``"reduce"`` and ``"dense"``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,16 @@ def init_conv_weight_(w: torch.Tensor, generator=None) -> torch.Tensor:
     bound = (1.0 / fan_in) ** 0.5
     with torch.no_grad():
         return w.uniform_(-bound, bound, generator=generator)
+
+
+def init_dense_weight_(w: torch.Tensor, generator=None) -> torch.Tensor:
+    """Flax's Dense initializer, lecun_normal (variance_scaling(1, fan_in,
+    truncated_normal)), in place on a weight ``[out, in]``: a normal
+    truncated at two standard deviations, rescaled to variance 1/fan_in."""
+    std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 class HexConv(nn.Module):
@@ -106,17 +118,64 @@ class Conv(nn.Module):
         return self.conv(x)
 
 
+class Dense(nn.Module):
+    """Flax's ``nn.Dense``: ``x @ kernel + bias`` with the weight stored as
+    torch's ``[out, in]``; f32 parameters, computed in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
+        init_dense_weight_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # The bias is added after the product is rounded to ``dtype``, as
+        # Flax does (a fused addmm would round once, off by a bf16 step).
+        y = nn.functional.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm(use_running_average=True)`` over the channels of
+    NHWC activations: ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias`` in
+    f32, returned in ``dtype``.  The running mean and variance are buffers;
+    nothing here updates them (the JAX learner cannot train a BatchNorm net
+    either, see ``training/learner.py``)."""
+
+    eps = 1e-5
+
+    def __init__(self, features: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+
+
+def _norm(batch_norm: bool, features: int, dtype):
+    return BatchNorm(features, dtype) if batch_norm else nn.Identity()
+
+
 class BasicBlock(nn.Module):
-    """Residual block: conv -> relu -> conv, + identity, relu
+    """Residual block: conv -> (BN) -> relu -> conv, + identity, relu
     (ref ``blocks.py:12-41``)."""
 
-    def __init__(self, channels: int, hex: bool = True, dtype=torch.float32):
+    def __init__(self, channels: int, batch_norm: bool = False, hex: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.conv1 = Conv(channels, channels, hex=hex, dtype=dtype)
+        self.norm = _norm(batch_norm, channels, dtype)
         self.conv2 = Conv(channels, channels, hex=hex, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.conv1(x))
+        out = torch.relu(self.norm(self.conv1(x)))
         out = self.conv2(out)
         return torch.relu(out + x)
 
@@ -126,7 +185,8 @@ class ReduceValueHead(nn.Module):
     tanh (ref ``blocks.py:46-92``).  Returns [B]."""
 
     def __init__(self, width: int, num_reduce_layers: int = 4,
-                 activation: str = "tanh", hex: bool = True, dtype=torch.float32):
+                 activation: str = "tanh", batch_norm: bool = False, hex: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.act = {"tanh": torch.tanh, "relu": torch.relu}[activation]
         sizes = _ramp(width, 1, num_reduce_layers)
@@ -134,13 +194,39 @@ class ReduceValueHead(nn.Module):
         self.convs = nn.ModuleList(
             Conv(i, o, hex=hex, dtype=dtype) for i, o in zip(ins, sizes)
         )
+        # One BatchNorm after each conv but the last (Flax BatchNorm_{i}).
+        self.norms = nn.ModuleList(_norm(batch_norm, o, dtype) for o in sizes[:-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, conv in enumerate(self.convs):
             x = conv(x)
             if i != len(self.convs) - 1:
-                x = self.act(x)
+                x = self.act(self.norms[i](x))
         return torch.tanh(x.mean(dim=(1, 2, 3)))
+
+
+class DenseValueHead(nn.Module):
+    """conv -> (BN) -> flatten -> relu -> dense -> relu -> dense(1) -> tanh
+    (ref ``blocks.py:97-125``; all layers bias-free).  The flatten is over
+    NHWC, so the first dense layer's width needs the board's
+    ``board_shape`` (H, W) up front."""
+
+    def __init__(self, width: int, board_shape, dense_layer_neurons: int = 256,
+                 conv_layer_channels: int = 32, batch_norm: bool = False,
+                 hex: bool = True, dtype=torch.float32):
+        super().__init__()
+        rows, cols = board_shape
+        self.conv = Conv(width, conv_layer_channels, hex=hex, dtype=dtype)
+        self.norm = _norm(batch_norm, conv_layer_channels, dtype)
+        self.dense1 = Dense(rows * cols * conv_layer_channels, dense_layer_neurons,
+                            bias=False, dtype=dtype)
+        self.dense2 = Dense(dense_layer_neurons, 1, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(self.conv(x))
+        x = torch.relu(x.reshape(x.shape[0], -1))
+        x = torch.relu(self.dense1(x))
+        return torch.tanh(self.dense2(x))[:, 0]
 
 
 class ReducePolicyHead(nn.Module):
@@ -149,26 +235,37 @@ class ReducePolicyHead(nn.Module):
     (plane, row, col) order."""
 
     def __init__(self, width: int, policy_channels: int,
-                 num_reduce_layers: int = 2, hex: bool = True, dtype=torch.float32):
+                 num_reduce_layers: int = 2, batch_norm: bool = False, hex: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         sizes = _ramp(width, policy_channels, num_reduce_layers)
         ins = [width] + list(sizes[:-1])
         self.convs = nn.ModuleList(
             Conv(i, o, hex=hex, dtype=dtype) for i, o in zip(ins, sizes)
         )
+        self.norms = nn.ModuleList(_norm(batch_norm, o, dtype) for o in sizes[:-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, conv in enumerate(self.convs):
             x = conv(x)
             if i != len(self.convs) - 1:
-                x = torch.relu(x)
+                x = torch.relu(self.norms[i](x))
         # NHWC -> NCHW -> flat, so logits ravel as (plane, row, col).
         return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
 
 
 def make_value_head(name: str, width: int, *, activation: str = "tanh",
-                    hex: bool = True, dtype=torch.float32) -> nn.Module:
-    """Value head by selector string (ref RecurrentNet.py:58-76)."""
-    if name != "reduce":
-        raise ValueError(f"value head {name!r} is not ported; options: ['reduce']")
-    return ReduceValueHead(width, activation=activation, hex=hex, dtype=dtype)
+                    batch_norm: bool = False, hex: bool = True, dtype=torch.float32,
+                    board_shape=None) -> nn.Module:
+    """Value head by selector string (ref RecurrentNet.py:58-76,
+    ResNet.py:51-58).  ``board_shape`` (H, W) is needed by ``"dense"``."""
+    if name == "reduce":
+        return ReduceValueHead(width, activation=activation, batch_norm=batch_norm,
+                               hex=hex, dtype=dtype)
+    if name == "dense":
+        if board_shape is None:
+            raise ValueError("the dense value head needs the board_shape (H, W)")
+        return DenseValueHead(width, board_shape, batch_norm=batch_norm, hex=hex, dtype=dtype)
+    # The JAX registry's other heads (nuzero_tpu/networks/blocks.py:VALUE_HEADS)
+    # are not ported yet.
+    raise ValueError(f"value head {name!r} is not ported; options: ['dense', 'reduce']")

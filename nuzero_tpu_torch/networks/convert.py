@@ -1,4 +1,6 @@
-"""Flax ``RecurrentNet`` variables -> the port's ``state_dict`` (NumPy only).
+"""Flax network variables -> the port's ``state_dict`` (NumPy only).
+
+``RecurrentNet``:
 
 The Flax names (``nuzero_tpu/networks/recurrent.py``) map one to one:
 
@@ -8,8 +10,15 @@ The Flax names (``nuzero_tpu/networks/recurrent.py``) map one to one:
     params/ReducePolicyHead_0/Conv_{i}/...               -> policy_head.convs.{i}.conv.weight
     params/ReduceValueHead_0/Conv_{i}/...                -> value_head.convs.{i}.conv.weight
 
+``MLPNetwork``, ``ConvNet`` and ``ResNet``: see ``mlp_state_dict``,
+``convnet_state_dict`` and ``resnet_state_dict``.
+
 Hex kernels are ``[7, Cin, Cout]`` on both sides.  An ortho conv
-(``Conv_{i}/Conv_0/kernel``, HWIO) becomes OIHW.
+(``Conv_{i}/Conv_0/kernel``, HWIO) becomes OIHW.  A Dense ``kernel``
+``[in, out]`` becomes a ``weight`` ``[out, in]``, beside its ``bias``.  A
+BatchNorm's ``scale`` and ``bias`` (``params``) and ``mean`` and ``var``
+(``batch_stats``) become ``weight``, ``bias``, ``running_mean`` and
+``running_var``.
 """
 
 from __future__ import annotations
@@ -49,4 +58,82 @@ def recurrent_net_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]
     ):
         for i, conv in enumerate(_numbered(params[head], "Conv")):
             out[f"{name}.convs.{i}.conv.weight"] = _conv_weight(conv)
+    return out
+
+
+def _dense(out: Dict[str, np.ndarray], prefix: str, node: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = np.asarray(node["kernel"], np.float32).T.copy()
+    if "bias" in node:
+        out[f"{prefix}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+def _batch_norm(out, prefix: str, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = np.asarray(params["scale"], np.float32)
+    out[f"{prefix}.bias"] = np.asarray(params["bias"], np.float32)
+    out[f"{prefix}.running_mean"] = np.asarray(stats["mean"], np.float32)
+    out[f"{prefix}.running_var"] = np.asarray(stats["var"], np.float32)
+
+
+def _head(out, prefix: str, params, stats) -> None:
+    """A reduce head's convs and BatchNorms (Flax ``Conv_{i}``,
+    ``BatchNorm_{i}``), or the dense value head."""
+    if "Dense_0" in params:
+        out[f"{prefix}.conv.conv.weight"] = _conv_weight(params["Conv_0"])
+        if "BatchNorm_0" in params:
+            _batch_norm(out, f"{prefix}.norm", params["BatchNorm_0"], stats["BatchNorm_0"])
+        _dense(out, f"{prefix}.dense1", params["Dense_0"])
+        _dense(out, f"{prefix}.dense2", params["Dense_1"])
+        return
+    for i, conv in enumerate(_numbered(params, "Conv")):
+        out[f"{prefix}.convs.{i}.conv.weight"] = _conv_weight(conv)
+    for i, bn in enumerate(_numbered(params, "BatchNorm")):
+        _batch_norm(out, f"{prefix}.norms.{i}", bn, stats[f"BatchNorm_{i}"])
+
+
+def mlp_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Convert a Flax ``MLPNetwork``'s variables: ``Dense_{i}`` in creation
+    order are the trunk (``hidden_layers + 1``), then the 3 policy and the 3
+    value layers."""
+    dense = _numbered(variables["params"], "Dense")
+    n_trunk = len(dense) - 6
+    out = {}
+    for i, node in enumerate(dense):
+        if i < n_trunk:
+            _dense(out, f"trunk.{i}", node)
+        elif i < n_trunk + 3:
+            _dense(out, f"policy.{i - n_trunk}", node)
+        else:
+            _dense(out, f"value.{i - n_trunk - 3}", node)
+    return out
+
+
+def convnet_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Convert a Flax ``ConvNet``'s variables: ``Conv_{i}`` -> ``convs.{i}``."""
+    params = variables["params"]
+    out = {f"convs.{i}.conv.weight": _conv_weight(conv)
+           for i, conv in enumerate(_numbered(params, "Conv"))}
+    _head(out, "policy_head", params["ReducePolicyHead_0"], {})
+    _head(out, "value_head", params["ReduceValueHead_0"], {})
+    return out
+
+
+def resnet_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Convert a Flax ``ResNet``'s variables (``batch_stats`` where it has
+    BatchNorm): ``Conv_0`` / ``BatchNorm_0`` -> ``stem`` / ``stem_norm``,
+    ``BasicBlock_{b}`` -> ``blocks.{b}``, the heads by name."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = {"stem.conv.weight": _conv_weight(params["Conv_0"])}
+    if "BatchNorm_0" in params:
+        _batch_norm(out, "stem_norm", params["BatchNorm_0"], stats["BatchNorm_0"])
+    for b, block in enumerate(_numbered(params, "BasicBlock")):
+        for j, conv in enumerate(_numbered(block, "Conv")):
+            out[f"blocks.{b}.conv{j + 1}.conv.weight"] = _conv_weight(conv)
+        if "BatchNorm_0" in block:
+            _batch_norm(out, f"blocks.{b}.norm", block["BatchNorm_0"],
+                        stats[f"BasicBlock_{b}"]["BatchNorm_0"])
+    _head(out, "policy_head", params["ReducePolicyHead_0"],
+          stats.get("ReducePolicyHead_0", {}))
+    value = "DenseValueHead_0" if "DenseValueHead_0" in params else "ReduceValueHead_0"
+    _head(out, "value_head", params[value], stats.get(value, {}))
     return out

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import torch
 
@@ -34,11 +35,20 @@ DW_CHUNK, DW_MAX_CLUSTER = 16, 8
 
 #: Launches per device kernel since the last ``reset_launch_count()``.
 launch_count = {name: 0 for name in (*KERNELS.values(), *DW_KERNELS.values())}
+# The training pipeline's asynchronous in-loop tests launch from a worker
+# thread: an increment is a read-modify-write.
+_count_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
-    for name in launch_count:
-        launch_count[name] = 0
+    with _count_lock:
+        for name in launch_count:
+            launch_count[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        launch_count[name] += 1
 
 
 def _check_operands(name, a, b):
@@ -80,7 +90,7 @@ def hex_conv_cuda(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"hexconv_forward launch failed: CUDA error {err}")
-    launch_count[KERNELS[x.dtype]] += 1
+    count_launch(KERNELS[x.dtype])
     return y
 
 
@@ -191,5 +201,5 @@ def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                 f"hexconv_dw launch failed: a board {W} wide is past the {DW_KERNELS[x.dtype]}'s "
                 f"shared-memory cap (boards up to {cap} wide at Cout {Cout})")
         raise RuntimeError(f"hexconv_dw launch failed: CUDA error {err}")
-    launch_count[DW_KERNELS[x.dtype]] += 1
+    count_launch(DW_KERNELS[x.dtype])
     return dw

@@ -82,7 +82,16 @@ def global_norm(tensors) -> torch.Tensor:
 class Learner:
     def __init__(self, manager: NetworkManager, config: LearnerConfig,
                  draws: Callable[[torch.Generator, int], Tuple[int, int]] = progressive_draws):
-        """The learner runs where ``manager``'s module lies."""
+        """The learner runs where ``manager``'s module lies.  A net with
+        BatchNorm is refused: the JAX learner applies it with ``train=True``
+        and its ``batch_stats`` immutable, which Flax refuses
+        (``ModifyScopeVariableError``), so the reference has no training
+        rule for it to port."""
+        if manager.has_batch_norm:
+            raise NotImplementedError(
+                "Learner: a network with batch_norm cannot be trained; the JAX learner "
+                "applies it in training mode with its batch_stats immutable, which Flax "
+                "refuses, so there is no reference training rule to port")
         self.manager = manager
         self.config = config
         self.draws = draws

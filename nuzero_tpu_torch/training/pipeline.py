@@ -13,9 +13,18 @@ captured at first use), which reads nothing on the host; the loop reads a
 move-batch's finished count and overflow flag ``PIPELINE_DEPTH`` batches
 later.
 
+In-loop evaluation (``Testing``): every ``policy_test_frequency`` /
+``mcts_test_frequency`` steps, and at step 0 under ``early_testing``, the
+policy and MCTS agents play the random agent (and the GoalRush agent under
+``goal_rush_opponent``) from both seats; the win and non-loss rates are
+journaled under the JAX pipeline's keys.  With ``asynchronous_testing``
+a job runs on a worker thread and its own CUDA stream, on a copy of the
+parameters, and is journaled under its launch step when it is harvested;
+pending jobs are joined before a CUDA graph is captured, since a capture
+admits no other thread's launches.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-option: the asynchronous running mode, in-loop tests and early testing
-(they need the evaluation package), state-set value probes, loss and
+option: the asynchronous running mode, state-set value probes, loss and
 weight plots, more than one game type, a mesh, ``NUZERO_MFU`` and
 ``NUZERO_TRACE_DIR``, and the partial buffer load by step on resume.
 """
@@ -23,15 +32,21 @@ weight plots, more than one game type, a mesh, ``NUZERO_MFU`` and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import copy
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from nuzero_tpu_torch.config.schemas import TrainingConfig
+from nuzero_tpu_torch.evaluation.agents import (
+    GoalRushAgent, MctsAgent, PolicyAgent, RandomAgent,
+)
+from nuzero_tpu_torch.evaluation.manager import TestManager
 from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.search.mcts import SearchParams
 from nuzero_tpu_torch.training import replay as replay_lib
@@ -70,14 +85,9 @@ def learner_config_from_training(cfg: TrainingConfig, num_game_types: int = 1) -
 
 def unported_options(cfg: TrainingConfig, envs=1, state_set=None, mesh=None) -> list:
     """The options of this configuration that the port does not run yet."""
-    t, p = cfg.testing, cfg.plotting
+    p = cfg.plotting
     named = {
         "running_mode 'asynchronous'": cfg.running.running_mode == "asynchronous",
-        "Testing.early_testing": t.early_testing,
-        "Testing.policy_test_frequency (in-loop tests)": bool(t.policy_test_frequency),
-        "Testing.mcts_test_frequency (in-loop tests)": bool(t.mcts_test_frequency),
-        "Testing.asynchronous_testing": t.asynchronous_testing,
-        "Testing.goal_rush_opponent": t.goal_rush_opponent,
         "Plotting.plot_loss": p.plot_loss,
         "Plotting.plot_weights": p.plot_weights,
         "state_set (value probes)": state_set is not None,
@@ -104,9 +114,13 @@ class AlphaZero:
         train_config: TrainingConfig,
         search_params: SearchParams,
         run_dir: Optional[str] = None,
+        test_hook: Optional[Callable] = None,
         state_set=None,
         mesh=None,
     ):
+        """``test_hook(state, step) -> dict`` replaces the in-loop tests:
+        called every ``policy_test_frequency`` steps, its metrics go into
+        the step's record."""
         envs = list(env) if isinstance(env, (list, tuple)) else [env]
         missing = unported_options(train_config, len(envs), state_set, mesh)
         if missing:
@@ -158,6 +172,33 @@ class AlphaZero:
         self._graphs = {}
         self._pool = None
 
+        # In-loop evaluation against RandomAgent, policy and MCTS agents on
+        # both seats (ref AlphaZero.run_tests, AlphaZero.py:596-645), at the
+        # Testing config's recurrent iteration count.
+        self.test_hook = test_hook
+        test_iters = train_config.recurrent.test_iterations
+        test_mgr = manager
+        if train_config.testing.asynchronous_testing:
+            # functional_call swaps a module's tensors while it runs, so the
+            # worker thread's agents get a module of their own.
+            test_mgr = NetworkManager(copy.deepcopy(manager.module), manager.observation_shape)
+        self.test_manager = TestManager(env)
+        self._random_agent = RandomAgent()
+        self._policy_agent = PolicyAgent(test_mgr, None, test_iters)
+        self._mcts_agent = MctsAgent(test_mgr, None, search_params, test_iters)
+        self._goal_rush_agent = (GoalRushAgent() if train_config.testing.goal_rush_opponent
+                                 else None)
+        # Asynchronous testing: jobs run one at a time on a worker thread (so
+        # the shared test agents are never raced), on their own CUDA stream.
+        self._test_executor = None
+        self._eval_stream = None
+        self._pending_tests: list = []
+        if train_config.testing.asynchronous_testing:
+            self._test_executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="nuzero-eval")
+            if self.device.type == "cuda":
+                self._eval_stream = torch.cuda.Stream(self.device)
+
     # -- phases --------------------------------------------------------------
 
     def _observe(self, states: torch.Tensor) -> torch.Tensor:
@@ -186,6 +227,8 @@ class AlphaZero:
             return lambda: (*play_in_place(step_fn, params, sp), flag)
         graph = self._graphs.get(step_fn)
         if graph is None or graph.sp is not sp:
+            # A capture admits no launch from another thread.
+            concurrent.futures.wait([f for _, f in self._pending_tests])
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = self._graphs[step_fn] = capture_selfplay_step(step_fn, params, sp,
@@ -246,23 +289,103 @@ class AlphaZero:
                 raise ValueError("Batch size too large; use early_fill to pre-fill "
                                  "the replay buffer (ref AlphaZero.py:690-693)")
             n_batches = n_pos // bs
-            # Per-epoch mean losses, kept apart from the last update's
-            # metrics (the JAX loop's next update overwrites all but the
-            # last epoch's).
-            epoch_losses = {}
-            for e in range(cfg.learning_epochs):
+            # No per-epoch loss reaches the journal: the JAX loop writes
+            # loss/epoch{e} into the last update's metrics, which the next
+            # update replaces, and its record copies only loss/type* keys
+            # (nuzero_tpu/training/pipeline.py:499-504,815-817).
+            for _ in range(cfg.learning_epochs):
                 perm = replay_lib.epoch_permutation(self.buffer, self._rng)
-                ep_loss = 0.0
                 for b in range(n_batches):
                     batch = self._gather_obs(perm[b * bs:(b + 1) * bs])
                     state, metrics = self.learner.train_step(state, batch, self._host_rng)
-                    ep_loss = ep_loss + metrics["loss/combined"]
-                if cfg.plot_epochs and n_batches:
-                    epoch_losses[f"loss/epoch{e}"] = float(ep_loss) / n_batches
-            metrics.update(epoch_losses)
         else:
             raise ValueError(f"bad learning_method {cfg.learning_method!r}")
         return state, metrics
+
+    # -- in-loop evaluation ----------------------------------------------------
+
+    def _inloop_test_job(self, params, step: int) -> dict:
+        """One eval batch: the policy and MCTS agents against RandomAgent on
+        both seats (ref AlphaZero.py:596-645), and against GoalRushAgent
+        under ``goal_rush_opponent``.  Seeds come from the step, as in the
+        JAX pipeline."""
+        cfg = self.cfg.testing
+        out = {}
+
+        def run(agent, n_games, tag, seed, opponent=None, suffix=""):
+            opponent = opponent or self._random_agent
+            agent.set_network(params)
+            gen = self.test_manager.generator
+            s_p0 = self.test_manager.run_test_batch(n_games, agent, opponent, gen(seed),
+                                                    show_results=False)
+            s_p1 = self.test_manager.run_test_batch(n_games, opponent, agent, gen(seed + 1),
+                                                    show_results=False)
+            out[f"wr/{tag}{suffix}_as_p0"] = s_p0.p0_win_rate
+            out[f"wr/{tag}{suffix}_as_p1"] = s_p1.p1_win_rate
+            out[f"nonloss/{tag}{suffix}_as_p0"] = 1.0 - s_p0.p1_win_rate
+            out[f"nonloss/{tag}{suffix}_as_p1"] = 1.0 - s_p1.p0_win_rate
+
+        gr = self._goal_rush_agent
+        if cfg.policy_test_frequency and step % cfg.policy_test_frequency == 0:
+            run(self._policy_agent, cfg.num_policy_test_games, "policy", 2 * step)
+            if gr is not None:
+                run(self._policy_agent, cfg.num_policy_test_games, "policy",
+                    2 * step + 10_000_001, opponent=gr, suffix="_vs_gr")
+        if cfg.mcts_test_frequency and step % cfg.mcts_test_frequency == 0:
+            run(self._mcts_agent, cfg.num_mcts_test_games, "mcts", 2 * step + 1)
+            if gr is not None:
+                run(self._mcts_agent, cfg.num_mcts_test_games, "mcts",
+                    2 * step + 10_000_002, opponent=gr, suffix="_vs_gr")
+        return out
+
+    def _tests_due(self, step: int) -> bool:
+        cfg = self.cfg.testing
+        return bool(
+            (cfg.policy_test_frequency and step % cfg.policy_test_frequency == 0)
+            or (cfg.mcts_test_frequency and step % cfg.mcts_test_frequency == 0))
+
+    def _async_test_job(self, params, ready, step: int) -> dict:
+        """``_inloop_test_job`` on the worker thread: on the card on the
+        eval stream, after the event ``ready`` that follows the copy of the
+        parameters."""
+        if self._eval_stream is None:
+            return self._inloop_test_job(params, step)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._eval_stream):
+            self._eval_stream.wait_event(ready)
+            return self._inloop_test_job(params, step)
+
+    def _run_inloop_tests(self, state: TrainState, step: int) -> dict:
+        if not self._tests_due(step):
+            return {}
+        if self._test_executor is None:
+            return self._inloop_test_job(state.params, step)
+        # The job gets its own copy of the parameters, made on this stream
+        # before the learner's next update; the eval stream waits for it,
+        # and the copies' memory is not reused until the eval stream is done.
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        ready = None
+        if self._eval_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+            for v in params.values():
+                v.record_stream(self._eval_stream)
+        self._pending_tests.append(
+            (step, self._test_executor.submit(self._async_test_job, params, ready, step)))
+        return {}
+
+    def _harvest_async_tests(self, block: bool = False) -> None:
+        """Journal finished async eval batches under their launch step (ref
+        ``check_pending_tests``, ``AlphaZero.py:1268-1280``; records carry
+        their step, so append order does not matter)."""
+        remaining = []
+        for step, fut in self._pending_tests:
+            if block or fut.done():
+                res = fut.result()
+                if res:
+                    self.journal.append({"step": step, "async_test": True, **res})
+            else:
+                remaining.append((step, fut))
+        self._pending_tests = remaining
 
     # -- main loop -----------------------------------------------------------
 
@@ -290,6 +413,12 @@ class AlphaZero:
             bar.finish()
             print(f"early fill: {total} games in {time.time() - t0:.1f}s "
                   f"({int(self.buffer.num_positions)} positions)")
+
+        if cfg.testing.early_testing and starting_step == 0 and self.test_hook is None:
+            # Baseline eval before any update (ref early_testing).
+            res = self._run_inloop_tests(state, 0)
+            if res:
+                self.journal.append({"step": 0, **res})
 
         timers = PhaseTimers(dev)
         for step in range(starting_step + 1, cfg.running.training_steps + 1):
@@ -325,8 +454,17 @@ class AlphaZero:
                     self._sp_batches * cfg.running.num_actors
                     * self.search_params.num_simulations / sp_time)
             for k, v in tr_metrics.items():
-                if k.startswith("loss/type") or k.startswith("loss/epoch"):
+                if k.startswith("loss/type"):
                     record[k] = float(v)
+
+            with timers.phase("eval"):
+                if self.test_hook is not None:
+                    freq = cfg.testing.policy_test_frequency
+                    if freq and step % freq == 0:
+                        record.update(self.test_hook(state, step) or {})
+                else:
+                    record.update(self._run_inloop_tests(state, step))
+                self._harvest_async_tests()
             record.update(timers.metrics())
             self.journal.append(record)
 
@@ -337,6 +475,7 @@ class AlphaZero:
                     if cfg.saving.save_buffer:
                         tree["buffer"] = replay_lib.to_tree(self.buffer)
                     save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
+        self._harvest_async_tests(block=True)
         return state
 
     # -- resume --------------------------------------------------------------

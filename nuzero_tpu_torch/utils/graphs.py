@@ -33,15 +33,26 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 from typing import Callable, Optional
 
 import torch
 
-# Captures underway that ``run_while`` records into: [the bodies' MemPool,
-# the bodies' stream, whether a body is being recorded].
-_captures: list = []
-# Device flags that ``overflowed`` records into, innermost last.
-_flags: list = []
+
+class _ThreadState(threading.local):
+    """Per thread, as the current CUDA stream is: a capture on one thread
+    never sees another thread's loops (the pipeline's asynchronous in-loop
+    tests run eager searches on a worker thread)."""
+
+    def __init__(self):
+        # Captures underway that ``run_while`` records into: [the bodies'
+        # MemPool, the bodies' stream, whether a body is being recorded].
+        self.captures: list = []
+        # Device flags that ``overflowed`` records into, innermost last.
+        self.flags: list = []
+
+
+_state = _ThreadState()
 
 
 def capturing() -> bool:
@@ -63,11 +74,11 @@ def capture(graph: torch.cuda.CUDAGraph, pool=None,
     graph.body_pool = torch.cuda.MemPool()
     flags = overflow_into(overflow) if overflow is not None else contextlib.nullcontext()
     with torch.cuda.graph(graph, pool=pool, stream=main), flags:
-        _captures.append([graph.body_pool, bodies, False])
+        _state.captures.append([graph.body_pool, bodies, False])
         try:
             yield graph
         finally:
-            _captures.pop()
+            _state.captures.pop()
 
 
 def run_while(cond: Callable[[], torch.Tensor], body: Callable[[], None],
@@ -84,9 +95,9 @@ def run_while(cond: Callable[[], torch.Tensor], body: Callable[[], None],
                 return False
             body()
         return True
-    if not _captures:
+    if not _state.captures:
         raise RuntimeError("run_while under a capture that graphs.capture did not start")
-    record = _captures[-1]
+    record = _state.captures[-1]
     pool, child, in_body = record
     if in_body:
         raise RuntimeError("run_while loops do not nest")
@@ -123,18 +134,18 @@ def run_while(cond: Callable[[], torch.Tensor], body: Callable[[], None],
 def overflow_into(flag: torch.Tensor):
     """Inside the block, ``overflowed`` ORs into ``flag`` instead of
     reading on the host."""
-    _flags.append(flag)
+    _state.flags.append(flag)
     try:
         yield flag
     finally:
-        _flags.pop()
+        _state.flags.pop()
 
 
 def overflowed(cond: torch.Tensor, what: str) -> None:
     """Called after a loop bounded for capture; ``cond`` (0-d bool tensor)
     is true where the unbounded loop would go on."""
-    if _flags:
-        _flags[-1].logical_or_(cond)
+    if _state.flags:
+        _state.flags[-1].logical_or_(cond)
     elif capturing():
         raise RuntimeError(f"{what}: captured without an overflow flag")
     elif bool(cond):

@@ -1,9 +1,10 @@
 """Per-phase wall-clock timers (counterpart of
 ``nuzero_tpu/utils/profiling.py:PhaseTimers``).
 
-On the card a phase synchronizes the device before it reads the clock at
-its start and end, so that the time of a phase is the device work it
-queued, not the host's enqueue."""
+On the card a phase synchronizes the current stream before it reads the
+clock at its start and end, so that the time of a phase is the device work
+it queued, not the host's enqueue.  Work that another thread queues on its
+own stream (the asynchronous in-loop tests) is not waited for."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ class PhaseTimers:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     @contextlib.contextmanager
     def phase(self, name: str):

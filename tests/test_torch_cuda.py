@@ -394,3 +394,110 @@ def test_an_overflow_raises_after_the_replay(cuda_card, monkeypatch):
     graph.replay()
     with pytest.raises(OverflowError, match="self-play move"):
         graph.check_overflow()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["ConvNet", "ResNet"])
+def test_zoo_kernel_path_matches_plain_on_card(cuda_card, family, dtype):
+    """ConvNet(num_layers=2) and ResNet(num_blocks=4), hex, 16 filters: on
+    the card (the hex-conv kernels, 9 and 15 launches) against the same
+    weights on the CPU (the plain path), within 1e-4 (f32) or 2e-2 (bf16)
+    of the output scale."""
+    from nuzero_tpu_torch.networks.convnet import ConvNet
+    from nuzero_tpu_torch.networks.resnet import ResNet
+
+    def make(device):
+        env = SCSGame(load_scenario(SCENARIO, seed=42), device=device)
+        c, a = env.observation_shape[0], env.action_space_shape[0]
+        net = (ConvNet(c, a, num_filters=16, num_layers=2, dtype=dtype) if family == "ConvNet"
+               else ResNet(c, a, num_filters=16, num_blocks=4, dtype=dtype))
+        return env, NetworkManager(net.to(device), env.observation_shape)
+
+    env, mgr = make("cuda")
+    _, cpu_mgr = make("cpu")
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+    obs = env.observe(env.init(8))
+    hexconv_kernel.reset_launch_count()
+    with torch.no_grad():
+        p, v, _ = mgr.apply(variables, obs)
+        p_ref, v_ref, _ = cpu_mgr.apply({k: t.cpu() for k, t in variables.items()}, obs.cpu())
+    assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[dtype]] == (
+        9 if family == "ConvNet" else 15)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((p, p_ref), (v, v_ref)):
+        scale = max(float(want.abs().max()), 0.1)
+        assert float((got.cpu() - want).abs().max()) <= rel * scale
+
+
+@pytest.mark.cuda
+def test_ttt_replayed_moves_equal_eager_moves(cuda_card):
+    """Tic-Tac-Toe with an MLP, B=8, 8 simulations, carried trees: three
+    replays of the captured move equal three eager moves bit for bit."""
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+    from nuzero_tpu_torch.networks.mlp import MLPNetwork
+
+    env = TicTacToe("cuda")
+    mgr = NetworkManager(MLPNetwork(env.observation_shape, 9).cuda(), env.observation_shape)
+
+    def apply(variables, obs):
+        p, v, _ = mgr.apply(variables, obs)
+        return p, v
+
+    params = mcts.SearchParams(num_simulations=8)
+    step = make_selfplay_step(env, apply, params, training=True)
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def fresh():
+        return init_selfplay(env, 8, torch.Generator(device="cuda").manual_seed(1),
+                             search_params=params)
+
+    eager_sp, graph_sp = fresh(), fresh()
+    want = [_snapshot(eager_sp, *play_in_place(step, variables, eager_sp)) for _ in range(3)]
+    graph = capture_selfplay_step(step, variables, graph_sp)
+    for move in range(3):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = _snapshot(graph_sp, finished, stats)
+        for name in want[move]:
+            assert torch.equal(got[name], want[move][name]), f"move {move}: {name}"
+    graph.check_overflow()
+
+
+@pytest.mark.cuda
+def test_async_eval_jobs_beside_captured_selfplay(cuda_card, tmp_path):
+    """A TTT run with early, per-step policy and MCTS tests on the worker
+    thread: the step-0 job is pending when step 1 captures the self-play
+    graph, later jobs run beside its replays; every job is harvested under
+    its launch step."""
+    from nuzero_tpu_torch.config.schemas import (
+        LearningConfig, PlottingConfig, RunningConfig, TestingFrequencyConfig, TrainingConfig,
+    )
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+    from nuzero_tpu_torch.networks.mlp import MLPNetwork
+    from nuzero_tpu_torch.training.pipeline import AlphaZero
+
+    env = TicTacToe("cuda")
+    mgr = NetworkManager(MLPNetwork(env.observation_shape, 9).cuda(), env.observation_shape)
+    cfg = TrainingConfig(
+        running=RunningConfig(num_actors=16, early_fill_per_type=8, training_steps=3,
+                              num_games_per_type_per_step=8),
+        testing=TestingFrequencyConfig(asynchronous_testing=True, early_testing=True,
+                                       policy_test_frequency=1, mcts_test_frequency=1,
+                                       num_policy_test_games=32, num_mcts_test_games=8),
+        plotting=PlottingConfig(plot_loss=False),
+        learning=LearningConfig(replay_window_size=64, batch_size=32, num_samples=2),
+    )
+    az = AlphaZero(env, mgr, cfg, mcts.SearchParams(num_simulations=8), run_dir=str(tmp_path))
+    az.run(seed=0)
+    records = az.journal.load()
+    tests = [r for r in records if r.get("async_test")]
+    assert [r["step"] for r in tests] == [0, 1, 2, 3]
+    for r in tests:
+        assert {f"{m}/{t}_as_p{s}" for m in ("wr", "nonloss") for t in ("policy", "mcts")
+                for s in (0, 1)} <= set(r)
+    assert len(az._graphs) == 2 and not az._pending_tests
+    assert [r["step"] for r in records if "games" in r] == [1, 2, 3]

@@ -282,3 +282,43 @@ def test_capture_refuses_a_state_on_the_cpu():
     sp = init_selfplay(env, B, torch.Generator().manual_seed(1), search_params=params)
     with pytest.raises(ValueError, match="CUDA device"):
         capture_selfplay_step(step, variables, sp)
+
+
+def test_overflow_flags_are_per_thread():
+    """A flag entered on one thread (as a capture does) collects no
+    overflow of another thread's eager loop, which raises at once (the
+    pipeline's asynchronous in-loop tests run eager searches on a worker
+    thread)."""
+    import concurrent.futures
+
+    flag = torch.zeros((), dtype=torch.bool)
+    with graphs.overflow_into(flag), concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(graphs.overflowed, torch.tensor(True), "a worker's loop")
+        with pytest.raises(OverflowError, match="a worker's loop"):
+            fut.result(timeout=60)
+        graphs.overflowed(torch.tensor(False), "this thread's loop")
+    assert not bool(flag)
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """The kernel wrappers' counter under 8 threads with a short switch
+    interval: every increment lands."""
+    import concurrent.futures
+    import sys
+
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+
+    name = next(iter(hexconv_kernel.launch_count))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        hexconv_kernel.reset_launch_count()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(lambda: [hexconv_kernel.count_launch(name)
+                                         for _ in range(5000)]) for _ in range(8)]
+            for f in futs:
+                f.result(timeout=120)
+        assert hexconv_kernel.launch_count[name] == 8 * 5000
+    finally:
+        sys.setswitchinterval(old)
+        hexconv_kernel.reset_launch_count()

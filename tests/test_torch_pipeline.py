@@ -3,8 +3,9 @@ cut to two turns (games end in a few moves), an 8-filter RecurrentNet,
 4 actors, 2 simulations, 2 updates per step.  The journal records carry
 the JAX pipeline's keys, the update count is steps x num_samples, a
 checkpoint is written and a fresh coordinator resumes from it; the epochs
-method sweeps each position at most once; every option the port does not
-run yet is refused by name."""
+method sweeps each position at most once and journals the JAX
+coordinator's keys; every option the port does not run yet is refused by
+name."""
 
 import dataclasses
 import os
@@ -31,12 +32,12 @@ SCENARIO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 # The record keys of nuzero_tpu/training/pipeline.py:777-875 on a
 # one-game-type sequential run without probes, weight stats or MFU; its
-# "time/eval" phase times the in-loop tests, which are not ported.
+# "time/eval" phase times the in-loop tests (none are due here).
 RECORD_KEYS = {
     "step", "games", "buffer_games", "buffer_positions", "buffer_seq", "updates",
     "loss/combined", "loss/policy", "loss/value", "selfplay/root_value",
     "selfplay/tree_full_frac", "selfplay/children_per_node", "step_time_s",
-    "selfplay/env_steps_per_s", "time/selfplay", "time/train", "ts",
+    "selfplay/env_steps_per_s", "time/selfplay", "time/train", "time/eval", "ts",
 }
 
 
@@ -147,19 +148,43 @@ def test_epochs_sweep_each_position_at_most_once(tmp_path, monkeypatch):
         assert len(flat) == len(set(flat)) == 8 * per_epoch
         length = seen[0][1]
         assert all(i % L < int(length[i // L]) for i in flat)
-    assert {"loss/epoch0", "loss/epoch1"} <= set(az.journal.load()[-1])
+    # The JAX coordinator on the same config journals no loss/epoch* key
+    # (its record copies only loss/type*): the port's record holds its keys.
+    jax_keys = _jax_record_keys(cfg, str(tmp_path / "jax"))
+    assert set(az.journal.load()[-1]) == jax_keys
+    assert not any(k.startswith("loss/epoch") for k in jax_keys)
 
 
+def _jax_record_keys(cfg, run_dir):
+    """The keys of the last record of the JAX coordinator's run of ``cfg``
+    (the same scenario, net width and search)."""
+    from nuzero_tpu.config import schemas as jax_schemas
+    from nuzero_tpu.envs.scs import SCSGame as JaxSCSGame
+    from nuzero_tpu.envs.scs import load_scenario as jax_load_scenario
+    from nuzero_tpu.networks import NetworkManager as JaxManager
+    from nuzero_tpu.networks import RecurrentNet as JaxRecurrentNet
+    from nuzero_tpu.search.mcts import SearchParams as JaxSearchParams
+    from nuzero_tpu.training.pipeline import AlphaZero as JaxAlphaZero
+
+    def section(name):
+        value = getattr(cfg, name)
+        if not dataclasses.is_dataclass(value):
+            return value
+        return type(getattr(jax_schemas.TrainingConfig(), name))(**dataclasses.asdict(value))
+
+    jcfg = jax_schemas.TrainingConfig(**{f.name: section(f.name)
+                                         for f in dataclasses.fields(cfg)})
+    env = JaxSCSGame(jax_load_scenario(SCENARIO, seed=42, turns=2))
+    mgr = JaxManager(JaxRecurrentNet(policy_channels=env.action_space_shape[0], num_filters=8),
+                     env.observation_shape)
+    az = JaxAlphaZero(env, mgr, jcfg, JaxSearchParams(num_simulations=2), run_dir=run_dir)
+    az.run(seed=0)
+    return set(az.journal.load()[-1])
+
+
+# The in-loop testing options are ported (tests/test_torch_evaluation.py).
 UNPORTED = {
     "running_mode 'asynchronous'": dict(running=RunningConfig(running_mode="asynchronous")),
-    "Testing.early_testing": dict(testing=TestingFrequencyConfig(
-        early_testing=True, policy_test_frequency=0, mcts_test_frequency=0)),
-    "Testing.policy_test_frequency": dict(testing=TestingFrequencyConfig(mcts_test_frequency=0)),
-    "Testing.mcts_test_frequency": dict(testing=TestingFrequencyConfig(policy_test_frequency=0)),
-    "Testing.asynchronous_testing": dict(testing=TestingFrequencyConfig(
-        asynchronous_testing=True, policy_test_frequency=0, mcts_test_frequency=0)),
-    "Testing.goal_rush_opponent": dict(testing=TestingFrequencyConfig(
-        goal_rush_opponent=True, policy_test_frequency=0, mcts_test_frequency=0)),
     "Plotting.plot_loss": dict(plotting=PlottingConfig()),
     "Plotting.plot_weights": dict(plotting=PlottingConfig(plot_loss=False, plot_weights=True)),
 }
