@@ -17,8 +17,11 @@ Phases, each of which must pass:
    tensor-core instruction;
 2. kernel check: the CUDA hex conv against its plain PyTorch version at
    every conv shape of the two self-play legs, plus 10x10 and 30x30
-   boards in both dtypes and ragged f32 shapes (``RAGGED``: odd Cin, pixel
-   counts off the block size, odd and even widths, Cout of 1 and 42).
+   boards in both dtypes, ragged f32 shapes (``RAGGED``: odd Cin, pixel
+   counts off the block size, odd and even widths, Cout of 1 and 42), and
+   the f32 shapes of the transfer sweeps (phase 13: B=64 on 5x5 to 15x15
+   boards, Cin 67 and 131, Cout 38, 12 and 1), with their times summed
+   per evaluation at 2, 6 and 24 iterations.
    Kernel, plain and library times are taken in
    turns with CUDA events; the library call is the JAX package's XLA path
    as one cuDNN ``conv2d`` (``hex_conv_dual3x3``; only the ``conv2d`` is
@@ -106,6 +109,29 @@ The non-recurrent networks, Tic-Tac-Toe and the evaluation layer:
    harvest's launch steps, finite losses, changed parameters, the
    captured self-play graph, and a checkpoint that restores equal.
 
+The DeepThinking transfer path:
+
+13. the three committed runs (``nuzero_tpu_torch/assets/runs``: the JAX
+   package's Orbax checkpoints carried across) loaded through
+   ``build_from_meta`` and ``TestManager.create_agent_from_config``; each
+   net on the card (kernel) against the CPU (plain) on 8 reachable
+   positions of every sweep size at 2, 6 and 24 iterations (within 1e-4
+   of max|.|, legal argmax equal, 17/37/127 hex-conv launches per
+   evaluation); ``run.py`` preset 2, the iteration sweep (64 games a point,
+   2-20 iterations) of ``scs_solo_r3`` and ``scs_solo_prog_r3``, equal to
+   the port's CPU curve and to the committed curve (except where the JAX
+   package on the CPU does not reproduce the TPU-made curve,
+   ``CPU_DIFFERS_FROM_COMMITTED``), with the smallest decision margin of
+   each point's game; preset 3, the size sweep of ``scs_solo_rvp_r5`` (6
+   sizes x 3 iteration counts x 64 games, layouts drawn per game), each
+   point within 3 standard deviations of the two samples plus 1/64 of the
+   committed rate and the mean within 3 standard errors; every arena action
+   legal, the launches of every evaluation, seconds per arena move per
+   point; then a ``randomize_vp`` self-play leg (64f f32, B=512,
+   ``solo_scout_5.yml``): four eager moves after ``RVP_LEG``'s warm-up,
+   then the captured move's four replays under sync debug mode "error",
+   each equal bit for bit, recycled games on new layouts.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -115,6 +141,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -123,8 +150,9 @@ import tempfile
 import time
 
 from nuzero_tpu_torch.ops.cuda.measure import (
-    BACKWARD_RAGGED, CONVS_PER_EVAL, RAGGED, TRAIN_BATCH, TRAIN_ITERS, bound, card_line,
-    conv_shapes, graph_ms, launches_per_update, library_backward, time_ms,
+    BACKWARD_RAGGED, CONVS_PER_EVAL, RAGGED, SWEEP_BATCH, SWEEP_ITERS, SWEEP_SIZES, TRAIN_BATCH,
+    TRAIN_ITERS, bound, card_line, conv_shapes, graph_ms, launches_per_update,
+    library_backward, sweep_conv_shapes, time_ms,
 )
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1257,6 +1285,405 @@ def ttt_training_run(card):
         log(f"TTT checkpoint of step {step} restored equal (params, SGD trace)")
 
 
+TRANSFER_RUNS = ("scs_solo_r3", "scs_solo_prog_r3", "scs_solo_rvp_r5")
+ITERATION_RUNS = ("scs_solo_r3", "scs_solo_prog_r3")
+SIZE_RUN = "scs_solo_rvp_r5"
+SWEEP_GAMES = 64
+# Points of the committed iteration curves (made on a TPU) that the JAX
+# package on the CPU does not reproduce in f32; the card is held to the
+# port's CPU result there, which equals the JAX package's on the CPU
+# (tests/test_torch_transfer.py).  At 10 iterations the scs_solo_r3 game
+# turns on a placement whose top-2 logit margin is 1.37e-3.
+CPU_DIFFERS_FROM_COMMITTED = {("scs_solo_r3", 10)}
+# The randomize_vp self-play leg: 64f f32, B=512, 30 simulations on
+# solo_scout_5.yml; WARMUP_MOVES eager moves first, so that games end and
+# are recycled within the checked moves.
+RVP_LEG = {"batch": 512, "warmup_moves": 10}
+
+
+def committed_json(run, name):
+    with open(os.path.join(REPO, "runs", run, "plots", name)) as f:
+        return json.load(f)
+
+
+def legal_argmax_margins(logits, legal):
+    """(argmax over the legal actions, top-1 minus top-2 legal logit) per row."""
+    import torch
+
+    masked = torch.where(legal, logits, torch.full_like(logits, float("-inf")))
+    top = masked.topk(2, dim=-1).values
+    return masked.argmax(-1), top[:, 0] - top[:, 1]
+
+
+def deciding_margin(env, agent, variables, iterations):
+    """Replay one game of ``agent`` (seat 1) on ``env`` at ``iterations`` and
+    return the smallest top-2 legal logit margin over its decisions, with
+    the move where it fell (every game of the iteration sweep is this
+    game: the policy is an argmax and seat 0 never moves)."""
+    import torch
+
+    agent.set_recurrent_iterations(iterations)
+    choose = agent.policy(env)
+    state = env.init(1)
+    worst = (float("inf"), -1)
+    for move in range(env.max_game_length):
+        if bool(env.terminal(state)[0]):
+            break
+        action = torch.zeros(1, dtype=torch.int32, device=env.device)
+        if int(env.current_player(state)[0]) == 1:
+            with torch.no_grad():
+                logits, _, _ = agent.manager.apply(variables, env.observe(state),
+                                                   iters_to_do=iterations)
+            _, margin = legal_argmax_margins(logits, env.legal_mask(state))
+            worst = min(worst, (float(margin[0]), move))
+            action = choose(variables, state, None, None)
+        state = env.step(state, action)
+    return worst
+
+
+def transfer_positions(sizes, gen):
+    """{size: (observations [8, C, size, size], legal masks)} of reachable
+    states on the size sweep's maps (CPU): game b of 8, each on its own
+    drawn layout, after 2*b uniform legal moves."""
+    import torch
+
+    from nuzero_tpu_torch.evaluation import sweeps
+    from nuzero_tpu_torch.evaluation.agents import uniform_legal
+
+    out = {}
+    for size in sizes:
+        env = sweeps.size_env(size, device="cpu")
+        state = env.init(8, generator=gen)
+        obs, legal = [], []
+        for t in range(16):
+            if t % 2 == 0:
+                obs.append(env.observe(state)[t // 2])
+                legal.append(env.legal_mask(state)[t // 2])
+            state = env.step(state, uniform_legal(env.legal_mask(state), gen))
+        out[size] = torch.stack(obs), torch.stack(legal)
+    return out
+
+
+class CountingApply:
+    """Wraps ``NetworkManager.apply`` for the phase: records each call's
+    iteration count (the hex-conv launches an evaluation must make)."""
+
+    def __init__(self):
+        from nuzero_tpu_torch.networks.manager import NetworkManager
+
+        self.cls, self.inner, self.iters = NetworkManager, NetworkManager.apply, []
+
+    def __enter__(self):
+        inner, iters = self.inner, self.iters
+
+        def apply(mgr, variables, obs, iters_to_do=2, interim_thought=None):
+            iters.append(int(iters_to_do))
+            return inner(mgr, variables, obs, iters_to_do, interim_thought)
+
+        self.cls.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply = self.inner
+
+
+class CheckedSteps:
+    """Wraps ``SCSGame.step`` for the phase: every action of a live game must
+    be legal (the arena is eager, so reading the host here is allowed)."""
+
+    def __init__(self):
+        from nuzero_tpu_torch.envs.scs.game import SCSGame
+
+        self.cls, self.inner, self.checked = SCSGame, SCSGame.step, 0
+
+    def __enter__(self):
+        import torch
+
+        inner = self.inner
+
+        def step(env, state, action):
+            live = ~env.terminal(state)
+            legal = env.legal_mask(state)
+            bi = torch.arange(action.shape[0], device=action.device)
+            if bool((live & ~legal[bi, action.long()]).any()):
+                raise AssertionError("an arena game played an illegal action")
+            self.checked += int(live.sum())
+            return inner(env, state, action)
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.inner
+
+
+def transfer_check(card):
+    """Phase 13: the committed runs on the card; returns the f32 forward
+    kernel's launches over the phase's sweeps."""
+    import torch
+
+    from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta
+    from nuzero_tpu_torch.evaluation import sweeps
+    from nuzero_tpu_torch.evaluation.manager import TestManager
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.ops.cuda.measure import SWEEP_ITERS, SWEEP_SIZES
+    from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    kernel = hexconv_kernel.KERNELS[torch.float32]
+
+    # --- 13.1 Network Check 2 on the card: the kernel against the plain
+    # version on the CPU, and the launches of each evaluation
+    positions = transfer_positions(SWEEP_SIZES, torch.Generator().manual_seed(0))
+    worst = {k: 0.0 for k in SWEEP_ITERS}
+    agents = {}
+    for run in TRANSFER_RUNS:
+        meta = load_run_meta(os.path.join(sweeps.GAME_DIR, run))
+        env, mgr = build_from_meta(meta, REPO, device="cuda")
+        _, cpu_mgr = build_from_meta(meta, REPO, device="cpu")
+        agent = TestManager(env).create_agent_from_config(
+            sweeps.policy_test(run, "iterations", 2, 2, 1, 1)["Agents"]["p2_agent"], mgr,
+            game_dir=sweeps.GAME_DIR)
+        agents[run] = agent
+        cpu_vars = restore_checkpoint(os.path.join(sweeps.GAME_DIR, run, "checkpoints"),
+                                      device="cpu")[0]["params"]
+        if sorted(agent.variables) != sorted(cpu_vars) or not all(
+                t.is_cuda for t in agent.variables.values()):
+            raise AssertionError(f"{run}: the agent's weights are not the run's on the card")
+        for size, (obs, legal) in positions.items():
+            for iters in SWEEP_ITERS:
+                label = f"{run} {size}x{size} {iters} iterations"
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    hexconv_kernel.reset_launch_count()
+                    p, v, _ = mgr.apply(agent.variables, obs.cuda(), iters_to_do=iters)
+                    torch.cuda.synchronize()
+                    launches = hexconv_kernel.launch_count[kernel]
+                    p_ref, v_ref, _ = cpu_mgr.apply(cpu_vars, obs, iters_to_do=iters)
+                if launches != 7 + 5 * iters:
+                    raise AssertionError(f"{label}: {launches} hex-conv launches, expected "
+                                         f"{7 + 5 * iters}")
+                errs = []
+                for got, want, name in ((p, p_ref, "logits"), (v, v_ref, "value")):
+                    got = got.cpu()
+                    if not (got.shape == want.shape and torch.isfinite(got).all()):
+                        raise AssertionError(f"{label} {name}: bad shape or non-finite values")
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    if rel > 1e-4:
+                        raise AssertionError(f"{label} {name}: card vs CPU {rel:.3e} of "
+                                             f"max|.| > 1e-4")
+                    errs.append(err)
+                    worst[iters] = max(worst[iters], rel)
+                # The legal argmax agrees wherever the CPU's top-2 margin
+                # exceeds twice the logits' error (a flip inside the stated
+                # tolerance would be no fault; none has been seen).
+                arg, _ = legal_argmax_margins(p.cpu(), legal)
+                arg_ref, margin = legal_argmax_margins(p_ref, legal)
+                flips = (arg != arg_ref) & (margin > 2 * errs[0])
+                if bool(flips.any()):
+                    raise AssertionError(f"{label}: legal argmax differs from the CPU's at "
+                                         f"margins {margin[flips].tolist()}")
+                if bool((arg != arg_ref).any()):
+                    log(f"{label}: legal argmax differs from the CPU's at margins "
+                        f"{margin[arg != arg_ref].tolist()}, inside twice the error")
+        log(f"network check 2 {run}: the card (hexconv_f32_kernel) against the CPU (plain) "
+            f"on 8 positions at {', '.join(f'{s}x{s}' for s in SWEEP_SIZES)} and "
+            f"{SWEEP_ITERS} iterations: within 1e-4 of max|.|, legal argmax equal, hex-conv "
+            f"launches per evaluation {'/'.join(str(7 + 5 * k) for k in SWEEP_ITERS)}")
+    log("network check 2: worst card-vs-CPU error relative to max|.|, by iterations: "
+        + ", ".join(f"{k}: {v:.3e}" for k, v in worst.items()))
+
+    # --- 13.2 / 13.3 the sweeps, through the port's TestManager
+    launches = 0
+
+    def sweep(fn, run, label, **kwargs):
+        nonlocal launches
+        torch.cuda.synchronize()
+        hexconv_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        with CountingApply() as calls, CheckedSteps() as steps, \
+                tempfile.TemporaryDirectory() as out:
+            record, seconds = fn(run, out_dir=out, games=SWEEP_GAMES, device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out, os.listdir(out)[0])) as f:
+                if json.load(f) != record:
+                    raise AssertionError(f"{label} {run}: the written JSON is not the record")
+        count = hexconv_kernel.launch_count[kernel]
+        want = sum(7 + 5 * k for k in calls.iters)
+        if count != want or not calls.iters:
+            raise AssertionError(f"{label} {run}: {count} hex-conv launches for "
+                                 f"{len(calls.iters)} evaluations, expected {want}")
+        launches += count
+        log(f"{label} {run}: {len(calls.iters)} PolicyAgent evaluations, {count} "
+            f"hex-conv launches, {steps.checked} actions checked legal, {wall:.2f} s  [{card}]")
+        return record, seconds
+
+    def outcomes(point):
+        counts = [point[k] * SWEEP_GAMES for k in ("p0_wr", "p1_wr", "draw_rate")]
+        if any(abs(c - round(c)) > 1e-9 for c in counts) or round(sum(counts)) != SWEEP_GAMES:
+            raise AssertionError(f"wins + losses + draws != {SWEEP_GAMES} games: {point}")
+        return [round(c) for c in counts]
+
+    scenario = sweeps.load_scenario(sweeps.SCENARIO, seed=42)
+    for run in ITERATION_RUNS:
+        record, seconds = sweep(sweeps.iteration_sweep, run, "iteration sweep")
+        # The port's plain path on the CPU, 2 games a point: every game of a
+        # point is the same game (an argmax policy, seat 0 never moves).
+        cpu, _ = sweeps.iteration_sweep(run, games=2, device="cpu")
+        committed = committed_json(run, "iteration_sweep.json")
+        if record["checkpoint_step"] != committed["checkpoint_step"] or not (
+                len(record["results"]) == len(cpu["results"]) == len(committed["results"])):
+            raise AssertionError(f"{run}: checkpoint step or points differ from the committed")
+        env = sweeps.SCSGame(scenario, device="cuda")
+        flipped = []
+        for point, on_cpu, want, secs in zip(record["results"], cpu["results"],
+                                             committed["results"], seconds):
+            outcomes(point)
+            iters = point["iterations"]
+            ref = on_cpu if (run, iters) in CPU_DIFFERS_FROM_COMMITTED else want
+            margin, move = deciding_margin(env, agents[run], agents[run].variables, iters)
+            log(f"iteration sweep {run} at {iters} iterations: P2 {point['p1_wr']:.4f} "
+                f"(CPU {on_cpu['p1_wr']:.4f}, committed {want['p1_wr']:.4f}"
+                + (", held to the CPU" if ref is on_cpu else "") + f"), draws "
+                f"{point['draw_rate']:.4f}; smallest legal top-2 logit margin {margin:.4e} "
+                f"(move {move}); {len(secs)} arena moves, {statistics.median(secs):.4f} s "
+                f"per arena move (median)  [{card}]")
+            if point["p1_wr"] != on_cpu["p1_wr"] or any(point[k] != ref[k] for k in ref):
+                flipped.append(iters)
+        if flipped:
+            raise AssertionError(f"{run}: the iteration curve differs at {flipped} (see the "
+                                 f"margins above)")
+
+    record, seconds = sweep(sweeps.size_sweep, SIZE_RUN, "size sweep")
+    committed = committed_json(SIZE_RUN, "size_sweep.json")
+    for key in ("checkpoint_step", "train_size", "turn_rule"):
+        if record[key] != committed[key]:
+            raise AssertionError(f"size sweep: {key} {record[key]} != {committed[key]}")
+    if record["curves"].keys() != committed["curves"].keys():
+        raise AssertionError(f"size sweep curves {list(record['curves'])}")
+    diffs, variances, i = [], [], 0
+    n = SWEEP_GAMES
+    for label, points in record["curves"].items():
+        for point, want in zip(points, committed["curves"][label]):
+            outcomes(point)
+            got, ref = point["p1_wr"], want["p1_wr"]
+            pooled = (got + ref) / 2
+            sd = math.sqrt(pooled * (1 - pooled) * (2 / n))
+            bound = 3 * sd + 1 / n
+            secs = seconds[i]
+            i += 1
+            log(f"size sweep {SIZE_RUN} {label} at {point['board_size']}x{point['board_size']}:"
+                f" P2 {got:.4f} (committed {ref:.4f}, |diff| {abs(got - ref):.4f} <= "
+                f"{bound:.4f}?), draws {point['draw_rate']:.4f}; {len(secs)} arena moves, "
+                f"{statistics.median(secs):.4f} s per arena move (median), "
+                f"{sum(secs):.2f} s  [{card}]")
+            if point["board_size"] != want["board_size"] or abs(got - ref) > bound:
+                raise AssertionError(f"size sweep {label} at {point['board_size']}: P2 {got} "
+                                     f"against the committed {ref}, bound {bound:.4f}")
+            diffs.append(got - ref)
+            variances.append(pooled * (1 - pooled) * (2 / n))
+    if len(diffs) != 18:
+        raise AssertionError(f"size sweep: {len(diffs)} points, expected 18")
+    mean = sum(diffs) / len(diffs)
+    se = math.sqrt(sum(variances)) / len(diffs)
+    log(f"size sweep {SIZE_RUN}: mean P2 rate over the 18 points "
+        f"{sum(p['p1_wr'] for c in record['curves'].values() for p in c) / 18:.4f} against "
+        f"the committed "
+        f"{sum(p['p1_wr'] for c in committed['curves'].values() for p in c) / 18:.4f} "
+        f"(mean diff {mean:+.4f}, 3 standard errors {3 * se:.4f})")
+    if abs(mean) > 3 * se:
+        raise AssertionError(f"size sweep: mean difference {mean:+.4f} beyond 3 SE {3 * se:.4f}")
+
+    # --- 13.4 the randomize_vp self-play leg, eager then graphed
+    rvp_selfplay_leg(card)
+    log(f"phase 13: {launches} hexconv_f32_kernel launches over the sweeps, wall time "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
+def rvp_selfplay_leg(card):
+    """Self-play with per-game victory points (64f f32, B=512, 30
+    simulations, ``solo_scout_5.yml``): after the warm-up moves, four eager
+    moves, then the captured move and four replays from the same state
+    and generator state under sync debug mode "error", each equal bit for
+    bit to the eager move; recycled games must restart on layouts other
+    than the ones they had."""
+    import torch
+
+    from nuzero_tpu_torch.envs.scs.game import SCSGame
+    from nuzero_tpu_torch.envs.scs.scenario import load_scenario
+    from nuzero_tpu_torch.search.mcts import SearchParams
+    from nuzero_tpu_torch.training.selfplay import (
+        capture_selfplay_step, copy_selfplay, init_selfplay, make_selfplay_step, move_tensors,
+        play_in_place,
+    )
+
+    path = os.path.join(REPO, "configs", "scenarios", "solo_scout_5.yml")
+    env = SCSGame(load_scenario(path, seed=42), randomize_vp=True, device="cuda")
+    mgr = make_net(env, 64, torch.float32)
+    variables = mgr.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def apply(v, obs):
+        p, val, _ = mgr.apply(v, obs, iters_to_do=2)
+        return p, val
+
+    params = SearchParams(num_simulations=SIMS)
+    step = make_selfplay_step(env, apply, params, training=True)
+    batch = RVP_LEG["batch"]
+    sp = init_selfplay(env, batch, torch.Generator(device="cuda").manual_seed(1),
+                       search_params=params)
+    for _ in range(RVP_LEG["warmup_moves"]):
+        play_in_place(step, variables, sp)
+    gsp = copy_selfplay(sp)
+    half = env.vp_half
+    eager, recycled, changed, seconds = [], 0, 0, []
+    for move in range(MOVES):
+        before = sp.games.vp.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished, stats = play_in_place(step, variables, sp)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        eager.append({k: v.clone() for k, v in move_tensors(sp, finished, stats).items()})
+        vp = sp.games.vp
+        if not bool(((vp.sum((2, 3)) == 1).all() & ~(vp & ~half).any())):
+            raise AssertionError("a layout is not one cell per player in the owner's half")
+        fresh = sp.move_count == 0
+        recycled += int(fresh.sum())
+        changed += int(((vp != before).flatten(1).any(1) & fresh).sum())
+        if bool(((vp != before).flatten(1).any(1) & ~fresh).any()):
+            raise AssertionError("a live game's layout changed")
+    if not recycled or not changed:
+        raise AssertionError(f"{recycled} games recycled, {changed} on another layout")
+    t0 = time.perf_counter()
+    graph = capture_selfplay_step(step, variables, gsp)
+    capture_s = time.perf_counter() - t0
+    replayed = []
+    for move in range(MOVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        replayed.append(time.perf_counter() - t0)
+        got = move_tensors(gsp, finished, stats)
+        differ = [k for k in eager[move] if not torch.equal(got[k], eager[move][k])]
+        if differ:
+            raise AssertionError(f"randomize_vp replay {move} differs from eager move {move} "
+                                 f"in {differ}")
+    graph.check_overflow()
+    log(f"randomize_vp self-play 64f float32 B={batch} on solo_scout_5.yml (after "
+        f"{RVP_LEG['warmup_moves']} warm-up moves): {recycled} games recycled in {MOVES} eager "
+        f"moves, {changed} of them on another layout; {MOVES} replays equal bit for bit, no "
+        f"host sync inside; eager {statistics.median(seconds[1:]):.4f} s per move, replayed "
+        f"{statistics.median(replayed[1:]):.4f} s, capture {capture_s:.2f} s  [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1748,30 @@ def main() -> int:
     for batch, rows, cols, cin, cout in RAGGED:
         err = check("float32", batch, rows, cin, cout, " (ragged)", cols)[0]
         per_dtype["float32"][0] = max(per_dtype["float32"][0], err)
+    # The transfer sweeps' shapes (phase 13): f32, B=64, every board size;
+    # per evaluation at each iteration count from the per-shape times.
+    transfer = {}
+    for size in SWEEP_SIZES:
+        per_shape = {}
+        for cin, cout, _ in sweep_conv_shapes():
+            err, *times = check("float32", SWEEP_BATCH, size, cin, cout, " (sweep)")
+            per_dtype["float32"][0] = max(per_dtype["float32"][0], err)
+            per_shape[cin, cout] = times
+        for iters in SWEEP_ITERS:
+            sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            by = {"operations": 0.0, "bytes": 0.0}
+            for cin, cout, count in sweep_conv_shapes(iters):
+                *times, b_by = per_shape[cin, cout]
+                for key, ms in zip(sums, times):
+                    sums[key] += count * ms
+                by[b_by] += count * times[3]
+            sums["bound_by"] = max(by, key=by.get)
+            transfer[f"{size}x{size}, {iters} iterations"] = sums
+            log(f"kernel float32 per sweep evaluation B={SWEEP_BATCH} {size}x{size} at {iters} "
+                f"iterations ({7 + 5 * iters} convs): kernel {sums['ms']:.4f} ms, plain "
+                f"{sums['plain_ms']:.4f} ms, library {sums['library_ms']:.4f} ms, bound "
+                f"{sums['bound_ms']:.4f} ms ({sums['bound_by']}), "
+                f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of bound  [{card}]")
 
     # --- 6. backward kernel check, at the shapes of one training update
     dw_sums = {}
@@ -1431,6 +1882,16 @@ def main() -> int:
         ttt_selfplay_leg(batch, card)
     arena_check(card)
     ttt_training_run(card)
+
+    # --- 13. the transfer path: the committed runs, the sweeps, randomize_vp
+    transfer_launches = transfer_check(card)
+    kernels[[k["name"] for k in kernels].index(KERNELS[torch.float32])]["transfer"] = {
+        "launches": transfer_launches,
+        "per_evaluation": transfer[f"{SWEEP_SIZES[-1]}x{SWEEP_SIZES[-1]}, {SWEEP_ITERS[-1]} "
+                                   f"iterations"],
+        "at": f"B={SWEEP_BATCH} {SWEEP_SIZES[-1]}x{SWEEP_SIZES[-1]}, {SWEEP_ITERS[-1]} "
+              f"iterations",
+    }
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

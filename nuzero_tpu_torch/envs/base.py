@@ -6,7 +6,9 @@ lives in a dataclass of tensors whose fields share a leading batch
 dimension B.  Where the JAX contract maps one game and lets ``vmap`` batch
 it, every method here takes and returns a batch:
 
-- ``init(batch_size) -> state``;
+- ``init(batch_size, generator=None) -> state``: fresh games; an env
+  whose games start at random (SCS with ``randomize_vp``) draws from
+  ``generator``, the others ignore it;
 - ``step(state, action i64/i32[B]) -> state``, total: defined for illegal
   actions and terminal states alike (legality is masked by the caller);
 - ``legal_mask(state) -> bool[B, num_actions]``;
@@ -49,7 +51,7 @@ class Env(abc.ABC):
     device: torch.device
 
     @abc.abstractmethod
-    def init(self, batch_size: int) -> EnvState:
+    def init(self, batch_size: int, generator=None) -> EnvState:
         """Fresh game states (player 0 to move)."""
 
     @abc.abstractmethod

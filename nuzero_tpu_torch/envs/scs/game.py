@@ -15,19 +15,24 @@ in at most ``stage_passes`` passes after the first, through
 ``graphs.run_while`` so that a captured move holds them as one while-node.
 Neighbor reads are plain gathers through the static neighbor tables.
 
-Not ported yet: ``randomize_vp``, ``simple_state`` and the render helpers.
+``randomize_vp=True`` draws each game's victory-point cells in ``init``
+(uniform over each owner's board half), as the JAX engine's ``init(key)``
+does; the layout then lives in the state.
+
+Not ported yet: ``simple_state`` and the render helpers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from nuzero_tpu_torch.envs.base import Env, select_state
 from nuzero_tpu_torch.envs.scs.hexgrid import neighbor_tables
-from nuzero_tpu_torch.envs.scs.scenario import Scenario
+from nuzero_tpu_torch.envs.scs.scenario import Scenario, board_sides
 from nuzero_tpu_torch.utils import graphs
 
 N_STATS = 3  # attack, defense, movement (ref SCS_Game.py:76)
@@ -109,11 +114,22 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class SCSGame(Env):
     """One instance binds one scenario, like the reference's
     ``SCS_Game(config_path, seed)``; the tensors live on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).
 
-    def __init__(self, scenario: Scenario, device="cuda"):
+    ``randomize_vp=True`` re-draws each player's victory point per game,
+    uniform over that player's board half (the reference's training
+    distribution: every self-play game builds a fresh ``SCS_Game`` whose
+    load re-randomizes the map).  It needs one victory point per player;
+    ``GoalRushAgent``, whose distance fields come from the static masks,
+    refuses such an env."""
+
+    def __init__(self, scenario: Scenario, randomize_vp: bool = False, device="cuda"):
         self.scenario = scenario
         self.device = torch.device(device)
+        self.randomize_vp = bool(randomize_vp)
+        if self.randomize_vp and tuple(scenario.n_vp) != (1, 1):
+            raise ValueError(
+                "randomize_vp supports scenarios with exactly one victory point per player")
         R, C, K = scenario.rows, scenario.cols, scenario.stacking_limit
         self.R, self.C, self.K = R, C, K
         self.S = scenario.units_per_player
@@ -184,6 +200,13 @@ class SCSGame(Env):
         self.t_defense = dev(scenario.terrain_defense, F32)
         self.t_cost = dev(scenario.terrain_cost, F32)
         self.vp = dev(scenario.vp, torch.bool)  # [2, R, C]
+        # Each player's own board half, where its victory point is drawn
+        # (ref define_board_sides).
+        p0_last, p1_first = board_sides(C)
+        half = np.zeros((2, R, C), bool)
+        half[0, :, : p0_last + 1] = True
+        half[1, :, p1_first:] = True
+        self.vp_half = dev(half, torch.bool)  # [2, R, C]
         self.u_attack = dev(scenario.reinf_stats[:, :, 0].reshape(-1), F32)
         self.u_defense = dev(scenario.reinf_stats[:, :, 1].reshape(-1), F32)
         self.u_allowance = dev(scenario.reinf_stats[:, :, 2].reshape(-1), F32)
@@ -244,8 +267,44 @@ class SCSGame(Env):
     # Env API                                                            #
     # ------------------------------------------------------------------ #
 
-    def init(self, batch_size: int) -> SCSState:
+    def draw_vp(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """bool[B, 2, R, C]: one victory-point cell per player and game,
+        uniform over the player's half, drawn from ``generator`` as the
+        argmax of the half's logits plus Gumbel noise (fixed shapes, no
+        host read: a captured move can draw)."""
+        R, C = self.R, self.C
+        u = torch.rand((batch_size, 2, R * C), generator=generator, device=self.device)
+        gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(F32).tiny)))
+        logits = torch.where(self.vp_half.reshape(2, R * C), 0.0, -1e9)
+        cells = torch.argmax(logits + gumbel, dim=-1)  # [B, 2]
+        flat = torch.arange(R * C, device=self.device)
+        return (cells[..., None] == flat).reshape(batch_size, 2, R, C)
+
+    def init(self, batch_size: int, generator=None, vp=None) -> SCSState:
+        """B fresh games.  With ``randomize_vp`` the victory points are
+        drawn from ``generator``; ``vp`` (bool[B, 2, R, C]) hands the layouts
+        in instead (tests give the JAX engine's draws).  Otherwise every
+        game takes the scenario's load-time layout."""
         B, U, dev = batch_size, self.U, self.device
+        if vp is not None:
+            if not isinstance(vp, torch.Tensor):
+                vp = torch.from_numpy(np.array(vp, dtype=bool))
+            vp = vp.to(device=dev, dtype=torch.bool).clone()
+            if vp.shape != (B, 2, self.R, self.C):
+                raise ValueError(f"vp of shape {tuple(vp.shape)}, expected "
+                                 f"{(B, 2, self.R, self.C)}")
+        elif self.randomize_vp and generator is not None:
+            vp = self.draw_vp(B, generator)
+        else:
+            if self.randomize_vp:
+                # A caller without a generator (a viewer, a debug render) gets
+                # the one static load-time layout, not the training
+                # distribution: say so instead of showing it silently.
+                warnings.warn(
+                    "SCSGame.init without a generator or vp, with randomize_vp=True, "
+                    "uses the static load-time VP layout, not the randomized training "
+                    "distribution; pass a generator to sample layouts", stacklevel=2)
+            vp = self.vp.expand(B, -1, -1, -1).clone()
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -270,7 +329,7 @@ class SCSGame(Env):
             is_attacker=full((B, U), False, torch.bool),
             attacker_seq=full((B, U), 10**6, I32),
             n_attackers=full((B,), 0, I32),
-            vp=self.vp.expand(B, -1, -1, -1).clone(),
+            vp=vp,
         )
         return self._update_env(state)
 

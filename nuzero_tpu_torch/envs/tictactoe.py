@@ -56,7 +56,7 @@ class TicTacToe(Env):
         self.lines = torch.from_numpy(_LINES).to(self.device)
         self._cells = torch.arange(9, device=self.device)
 
-    def init(self, batch_size: int) -> TTTState:
+    def init(self, batch_size: int, generator=None) -> TTTState:
         B, dev = batch_size, self.device
         return TTTState(
             board=torch.zeros((B, 3, 3), dtype=torch.int8, device=dev),

@@ -9,6 +9,10 @@ JAX arena's ``lax.cond``); the two seat flags and ``done.all()`` come to
 the host in one read per move.  Games cut by ``max_moves`` count as
 draws and are reported as truncated.
 
+The initial states come from ``env.init`` with the match's generator, so
+an env with per-game victory points (SCS ``randomize_vp``) draws each
+game's layout from it; tests hand the JAX arena's layouts in as ``vp``.
+
 Seat mapping is by player id: ``p0_policy`` plays player 0 (the
 reference's seat swap for {0,1}-labelled games, ``Tester.py:74-79``, is
 not reproduced, as in the JAX package).
@@ -66,12 +70,21 @@ class Arena:
         self.p1_policy = p1_policy
         self.draws = draws
         self.seconds_per_move: list = []  # host wall time of each move of the last play
+        # f32[B] of the last play: each game's terminal value (+1 = player 0
+        # won), 0 where it was cut by max_moves.
+        self.outcomes: Optional[torch.Tensor] = None
 
     def play(self, num_games: int, p0_variables, p1_variables, rng,
-             max_moves: Optional[int] = None) -> MatchStats:
+             max_moves: Optional[int] = None, vp=None) -> MatchStats:
+        """``rng``: a ``torch.Generator`` on the env's device (or None where
+        the draws are handed in); ``vp``: the games' victory-point layouts,
+        bool[B, 2, R, C], for an SCS env (tests)."""
         env = self.env
         max_moves = max_moves or env.max_game_length
-        states = env.init(num_games)
+        if vp is None:
+            states = env.init(num_games, generator=rng)
+        else:
+            states = env.init(num_games, vp=vp)
         lengths = torch.zeros(num_games, dtype=torch.int32, device=env.device)
         done = env.terminal(states)
         zeros = torch.zeros(num_games, dtype=torch.int32, device=env.device)
@@ -96,6 +109,7 @@ class Arena:
             self.seconds_per_move.append(time.perf_counter() - t0)
 
         values = env.terminal_value(states)
+        self.outcomes = torch.where(done, values, torch.zeros_like(values))
         counts = torch.stack([
             ((values > 0) & done).sum(), ((values < 0) & done).sum(),
             ((values == 0) & done).sum(), (~done).sum(), lengths.sum(),

@@ -29,6 +29,13 @@ BACKWARD_RAGGED = ((4, 5, 5, 64, 1), (3, 5, 5, 138, 21), (2, 5, 5, 342, 256),
                    (3, 7, 7, 150, 64), (5, 3, 9, 86, 21), (2, 6, 6, 21, 1),
                    (1, 5, 7, 1, 342), (3, 5, 5, 256, 86))
 
+# The transfer sweeps (``evaluation/sweeps.py``: the committed 64-filter
+# solo-scout nets, f32): B=64 games on boards of 5x5 to 15x15, 67
+# observation channels and 12 policy planes, at 2, 6 and 24 iterations.
+SWEEP_BATCH = 64
+SWEEP_SIZES = (5, 7, 9, 11, 13, 15)
+SWEEP_ITERS = (2, 6, 24)
+
 
 def conv_shapes(filters: int, obs_channels: int = 86, policy_channels: int = 21,
                 iterations: int = 2):
@@ -43,6 +50,11 @@ def conv_shapes(filters: int, obs_channels: int = 86, policy_channels: int = 21,
         shapes += [(i, o, 1) for i, o in zip(ins, head)]
     assert sum(n for _, _, n in shapes) == 7 + 5 * iterations
     return shapes
+
+
+def sweep_conv_shapes(iterations: int = 2):
+    """(Cin, Cout, count) of one evaluation of the sweeps' nets."""
+    return conv_shapes(64, obs_channels=67, policy_channels=12, iterations=iterations)
 
 
 def launches_per_update(iterations: int = TRAIN_ITERS) -> dict:

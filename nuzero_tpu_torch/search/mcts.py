@@ -254,7 +254,7 @@ def make_search_fn(
     else:
         num_nodes = params.num_simulations + 1
     depth_cap = min(num_nodes - 1, env.max_game_length, MAX_PATH_DEPTH) + 1
-    pack, unpack, state_dim = make_packer(env.init(1))
+    pack, unpack, state_dim = make_packer(env.init(1, generator=torch.Generator(env.device)))
     draws = draws or Draws()
     dev = env.device
 

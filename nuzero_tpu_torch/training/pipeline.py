@@ -159,7 +159,8 @@ class AlphaZero:
         self.sp_step = make_selfplay_step(env, net, search_params, training=True, game_type=0)
         self.sp_step_early = make_selfplay_step(env, net, early_params, training=True,
                                                 game_type=0)
-        _, self._unpack, self.state_dim = make_packer(env.init(1))
+        _, self._unpack, self.state_dim = make_packer(
+            env.init(1, generator=torch.Generator(env.device)))
         self.trajectory_length = (
             train_config.running.max_trajectory_length or env.max_game_length)
         self.buffer = replay_lib.create_buffer(

@@ -66,7 +66,7 @@ def init_selfplay(
     env's own width (0 = exactly this env's), so that several game types
     can share one replay buffer."""
     dev = env.device
-    games = env.init(batch_size)
+    games = env.init(batch_size, generator=rng)
     L = trajectory_capacity or env.max_game_length
     _, _, env_dim = make_packer(games)
     D = max(state_dim, env_dim)
@@ -101,7 +101,7 @@ def make_selfplay_step(
     """Build ``step(variables, sp) -> (sp, FinishedGames, stats)``: one
     move in every live game.  ``draws`` replaces the search's random
     numbers (tests); ``game_type`` tags the emitted games."""
-    pack, _, env_dim = make_packer(env.init(1))
+    pack, _, env_dim = make_packer(env.init(1, generator=torch.Generator(env.device)))
     search_fresh = make_search_fn(env, apply_fn, search_params, training, draws=draws)
     search_carry = make_search_fn(
         env, apply_fn, search_params, training, with_tree=True, draws=draws
@@ -142,9 +142,19 @@ def make_selfplay_step(
 
         # Auto-reset finished games (and discard trajectory overflows).
         recycle = done | overflow
+        randomize_vp = getattr(env, "randomize_vp", False)
         if B not in fresh_games:
-            fresh_games[B] = env.init(B)  # deterministic: computed once
-        games = select_state(recycle, fresh_games[B], stepped)
+            # Deterministic: computed once.  With per-game layouts the rest
+            # of a fresh state does not depend on the layout (no unit stands
+            # at init), so it is cached around the static one.
+            fresh_games[B] = (env.init(B, vp=env.vp.expand(B, -1, -1, -1)) if randomize_vp
+                              else env.init(B))
+        fresh = fresh_games[B]
+        if randomize_vp:
+            # New layouts for every slot, every move (fixed shapes, drawn from
+            # sp.rng, no host read); only the recycled games take theirs.
+            fresh = fresh.replace(vp=env.draw_vp(B, sp.rng))
+        games = select_state(recycle, fresh, stepped)
         move_count = torch.where(recycle, 0, sp.move_count + 1)
 
         # Re-root the carried trees at the played actions; recycled games
@@ -219,7 +229,7 @@ def move_tensors(sp: SelfplayState, finished: FinishedGames, stats: dict) -> dic
     return out
 
 
-def _copy_selfplay(sp: SelfplayState) -> SelfplayState:
+def copy_selfplay(sp: SelfplayState) -> SelfplayState:
     """A deep copy of ``sp``, generator state included."""
     rng = torch.Generator(device=sp.rng.device)
     rng.set_state(sp.rng.get_state())
@@ -293,7 +303,7 @@ def capture_selfplay_step(step, variables, sp: SelfplayState, pool=None) -> Self
         side.wait_stream(torch.cuda.current_stream())
         dropped = torch.zeros((), dtype=torch.bool, device=dev)
         with torch.cuda.stream(side), graphs.overflow_into(dropped):
-            step(params, _copy_selfplay(sp))
+            step(params, copy_selfplay(sp))
         torch.cuda.current_stream().wait_stream(side)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         graph = torch.cuda.CUDAGraph()

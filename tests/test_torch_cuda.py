@@ -20,7 +20,9 @@ from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-from nuzero_tpu_torch.ops.cuda.measure import BACKWARD_RAGGED, RAGGED, conv_shapes
+from nuzero_tpu_torch.ops.cuda.measure import (
+    BACKWARD_RAGGED, RAGGED, SWEEP_BATCH, SWEEP_SIZES, conv_shapes, sweep_conv_shapes,
+)
 from nuzero_tpu_torch.search import mcts
 from nuzero_tpu_torch.training.selfplay import (
     capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
@@ -81,6 +83,24 @@ def test_f32_kernel_matches_plain_on_card(cuda_card, b, h, w, cin, cout):
     assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.float32]] == 1
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SWEEP_SIZES)
+def test_f32_kernel_at_the_sweep_shapes(cuda_card, size):
+    """The f32 kernel against the plain version at every conv shape of the
+    transfer sweeps on one board size (B=64, Cin 67 and 131, Cout 38, 12
+    and 1, odd widths 5-15), within 1e-5 of max|y|, one launch each."""
+    for cin, cout, _ in sweep_conv_shapes():
+        x, wt = _inputs(SWEEP_BATCH, size, size, cin, cout, seed=size)
+        xc, wc = torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda()
+        hexconv_kernel.reset_launch_count()
+        got = hexconv_kernel.hex_conv_cuda(xc, wc)
+        want = hexconv.hex_conv_plain(xc, wc)
+        assert hexconv_kernel.launch_count[hexconv_kernel.KERNELS[torch.float32]] == 1
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), f"{size}x{size} {cin}->{cout}: {err}"
 
 
 @pytest.mark.cuda
@@ -298,10 +318,11 @@ SCENARIO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
                         "configs", "scenarios", "open_field_5.yml")
 
 
-def _selfplay(dtype, seed=1):
+def _selfplay(dtype, seed=1, scenario=SCENARIO, turns=None, randomize_vp=False):
     """A small self-play setup on the card: SCS open_field_5, B=4, an
     8-filter net, 3 simulations with carried trees, training draws."""
-    env = SCSGame(load_scenario(SCENARIO, seed=42), device="cuda")
+    env = SCSGame(load_scenario(scenario, seed=42, turns=turns), randomize_vp=randomize_vp,
+                  device="cuda")
     mgr = NetworkManager(RecurrentNet(env.observation_shape[0], env.action_space_shape[0],
                                       num_filters=8, num_blocks=2, recall=True, hex=True,
                                       dtype=dtype).cuda(), env.observation_shape)
@@ -344,6 +365,35 @@ def test_replayed_moves_equal_eager_moves(cuda_card, dtype):
     for move, (g, w) in enumerate(zip(got, want)):
         for name in w:
             assert torch.equal(g[name], w[name]), f"move {move}: {name}"
+
+
+@pytest.mark.cuda
+def test_randomize_vp_replays_equal_eager_moves(cuda_card):
+    """With per-game victory points (``solo_scout_5.yml`` cut to two turns,
+    so games end and are recycled): eight replays of the captured move
+    equal eight eager moves bit for bit, the generator's state included, with no
+    host read inside a replay, and recycled games restart on layouts drawn
+    inside the move."""
+    solo = os.path.join(os.path.dirname(SCENARIO), "solo_scout_5.yml")
+    setup = dict(scenario=solo, turns=2, randomize_vp=True)
+    step, variables, eager_sp = _selfplay(torch.float32, **setup)
+    _, _, graph_sp = _selfplay(torch.float32, **setup)
+    first = eager_sp.games.vp.clone()
+    want = [_snapshot(eager_sp, *play_in_place(step, variables, eager_sp)) for _ in range(8)]
+    graph = capture_selfplay_step(step, variables, graph_sp)
+    for move in range(8):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            finished, stats = graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = _snapshot(graph_sp, finished, stats)
+        for name in want[move]:
+            assert torch.equal(got[name], want[move][name]), f"move {move}: {name}"
+    graph.check_overflow()
+    recycled = [(w["move_count"] == 0) for w in want]
+    assert any(bool(r.any()) for r in recycled)
+    assert any(bool((w["games.vp"][r] != first[r]).any()) for w, r in zip(want, recycled))
 
 
 @pytest.mark.cuda

@@ -43,8 +43,9 @@ PATH = os.path.join(
 B, FILTERS, SIMS, MOVES = 4, 8, 3, 3
 
 
-def _setup(turns=None):
-    env = SCSGame(load_scenario(PATH, seed=42, turns=turns), device="cpu")
+def _setup(turns=None, path=PATH, randomize_vp=False):
+    env = SCSGame(load_scenario(path, seed=42, turns=turns), randomize_vp=randomize_vp,
+                  device="cpu")
     net = RecurrentNet(env.observation_shape[0], env.action_space_shape[0],
                        num_filters=FILTERS, num_blocks=2, recall=True, hex=True)
     mgr = NetworkManager(net, env.observation_shape)
@@ -75,18 +76,16 @@ def _no_host_reads(monkeypatch):
     monkeypatch.setattr(torch, "nonzero", refuse)
 
 
-def test_a_move_with_every_trip_reads_nothing_and_equals_the_eager_move(monkeypatch):
-    """Every ``run_while`` trip taken up to its bound (a replay's device
-    decides where to stop, so nothing in a loop may depend on stopping)
-    and overflows recorded into a flag: no host read, and the same bits as
-    the eager move that stops each loop early, over three moves."""
-    env, params, step, variables = _setup()
+def _guarded_moves(monkeypatch, env, params, step, variables, moves=MOVES):
+    """``moves`` eager moves, and the same moves from the same state with
+    every ``run_while`` trip taken, overflows recorded into a flag and every
+    host read refused -> (eager tensors, guarded tensors, trips)."""
     eager_sp = init_selfplay(env, B, torch.Generator().manual_seed(1), search_params=params)
     graph_sp = init_selfplay(env, B, torch.Generator().manual_seed(1), search_params=params)
     step(variables, init_selfplay(env, B, torch.Generator().manual_seed(9),
                                   search_params=params))  # fills the fresh-game cache
     eager = [_state_tensors(eager_sp, *play_in_place(step, variables, eager_sp))
-             for _ in range(MOVES)]
+             for _ in range(moves)]
 
     trips = []
 
@@ -100,18 +99,44 @@ def test_a_move_with_every_trip_reads_nothing_and_equals_the_eager_move(monkeypa
     flag = torch.zeros((), dtype=torch.bool)
     with monkeypatch.context() as guard, graphs.overflow_into(flag):
         _no_host_reads(guard)
-        moves = [_state_tensors(graph_sp, *play_in_place(step, variables, graph_sp))
-                 for _ in range(MOVES)]
+        guarded = [_state_tensors(graph_sp, *play_in_place(step, variables, graph_sp))
+                   for _ in range(moves)]
     assert not flag
+    for move, (got, want) in enumerate(zip(guarded, eager)):
+        assert got.keys() == want.keys()
+        for name in want:
+            assert torch.equal(got[name], want[name]), f"move {move}: {name}"
+    return eager, guarded, trips
+
+
+def test_a_move_with_every_trip_reads_nothing_and_equals_the_eager_move(monkeypatch):
+    """Every ``run_while`` trip taken up to its bound (a replay's device
+    decides where to stop, so nothing in a loop may depend on stopping)
+    and overflows recorded into a flag: no host read, and the same bits as
+    the eager move that stops each loop early, over three moves."""
+    env, params, step, variables = _setup()
+    _, _, trips = _guarded_moves(monkeypatch, env, params, step, variables)
     # Per move: the descent's steps after the first (depth_cap - 1, the tree
     # holding 2 * SIMS + 4 nodes) in each of SIMS simulations, and the stage
     # machine's passes in each of SIMS + 1 env steps.
     depth_steps = min(2 * SIMS + 3, env.max_game_length, mcts.MAX_PATH_DEPTH)
     assert sum(trips) == MOVES * (SIMS * depth_steps + (SIMS + 1) * env.stage_passes)
-    for move, (got, want) in enumerate(zip(moves, eager)):
-        assert got.keys() == want.keys()
-        for name in want:
-            assert torch.equal(got[name], want[name]), f"move {move}: {name}"
+
+
+def test_a_randomize_vp_move_reads_nothing_and_draws_layouts_in_the_move(monkeypatch):
+    """The same guard with per-game victory points (``solo_scout_5.yml`` cut
+    to two turns, so games end and are recycled within the moves): the
+    fresh layouts are drawn inside the move from ``sp.rng`` with no host
+    read, equal bit for bit to the eager move's, the generator's state
+    included, and the recycled games take layouts drawn there."""
+    path = os.path.join(os.path.dirname(PATH), "solo_scout_5.yml")
+    env, params, step, variables = _setup(turns=2, path=path, randomize_vp=True)
+    eager, _, _ = _guarded_moves(monkeypatch, env, params, step, variables, moves=8)
+    recycled = [m["move_count"] == 0 for m in eager]
+    assert any(r.any() for r in recycled)
+    first = eager[0]["games.vp"]
+    changed = [(m["games.vp"][r] != first[r]).any() for m, r in zip(eager, recycled)]
+    assert any(bool(c) for c in changed)
 
 
 @pytest.mark.parametrize("alpha", [1.0, 1.15, 3.0])

@@ -200,3 +200,36 @@ def test_selfplay_state_dim_and_game_type_match_jax():
         np.testing.assert_array_equal(tsp.state_buf.numpy(), np.asarray(jsp.state_buf))
         np.testing.assert_array_equal(tfin.game_type.numpy(), np.asarray(jfin.game_type))
     assert (tfin.game_type == gtype).all()
+
+
+def test_randomize_vp_recycles_games_with_fresh_layouts():
+    """With per-game victory points (``solo_scout_5.yml``, the rvp recipe's
+    map, cut to two turns so games end quickly), every recycled game
+    restarts on a layout drawn that move, one cell per player in the
+    owner's half, while live games keep theirs; the recycled layouts are
+    not all the initial ones, and the played games follow the layouts."""
+    path = os.path.join(os.path.dirname(PATH), "solo_scout_5.yml")
+    env = SCSGame(load_scenario(path, seed=42, turns=2), randomize_vp=True, device="cpu")
+    mgr, net = _torch_net(env)
+    variables = mgr.init(torch.Generator().manual_seed(0))
+    params = SearchParams(num_simulations=2)
+    step = make_selfplay_step(env, net, params, training=True)
+    B = 16
+    sp = init_selfplay(env, B, torch.Generator().manual_seed(1), search_params=params)
+    initial = sp.games.vp.clone()
+    half = env.vp_half.numpy()
+    assert len({initial[b].numpy().tobytes() for b in range(B)}) > 1
+    recycled_layouts, recycled = [], 0
+    for _ in range(30):
+        before = sp.games.vp.clone()
+        sp, finished, _ = step(variables, sp)
+        vp = sp.games.vp.numpy()
+        assert (vp.sum((2, 3)) == 1).all() and not (vp & ~half).any()
+        fresh = (sp.move_count == 0).numpy()
+        np.testing.assert_array_equal(vp[~fresh], before.numpy()[~fresh])
+        recycled += int(fresh.sum())
+        recycled_layouts += [vp[b].tobytes() for b in np.flatnonzero(fresh)]
+        np.testing.assert_array_equal(fresh, finished.mask.numpy())
+    assert recycled >= B
+    assert len(set(recycled_layouts) - {initial[b].numpy().tobytes() for b in range(B)}) > 0
+    assert len(set(recycled_layouts)) > 1

@@ -1,0 +1,376 @@
+"""The DeepThinking transfer path: the committed runs' weights in the port.
+
+The three SCS runs under ``runs/`` are Orbax checkpoints of the JAX
+package.  ``export_run`` carries one across: it restores the checkpoint
+with the JAX package, maps its ``params`` through
+``nuzero_tpu_torch/networks/convert.py`` and writes the parameters and the
+update count, nothing else, in the port's checkpoint format, beside a copy
+of the run's ``run_meta.yaml``.  The results are committed under
+``nuzero_tpu_torch/assets/runs/<run>/`` so that a machine without JAX can
+load them; regenerate them with
+
+    JAX_PLATFORMS=cpu python tests/test_torch_transfer.py --export
+
+Here: the committed files equal a fresh export; Network Check 2 (each net
+in both packages on reachable positions of ``solo_scout_5.yml`` at 5x5,
+9x9 and 15x15, at 2, 6 and 24 iterations); ``run.py`` preset 2's iteration
+sweep against the JAX package's on the CPU and the committed curves; and
+preset 3's size-sweep machinery game for game, with the JAX engine's
+victory-point layouts handed in.
+"""
+
+import json
+import math
+import os
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import pytest  # noqa: E402
+
+from nuzero_tpu.config.run_meta import build_from_meta as jax_build_from_meta  # noqa: E402
+from nuzero_tpu.envs.scs import SCSGame as JaxSCSGame  # noqa: E402
+from nuzero_tpu.envs.scs import load_scenario as jax_load_scenario  # noqa: E402
+from nuzero_tpu.evaluation import TestManager as JaxTestManager  # noqa: E402
+from nuzero_tpu.evaluation import agents as jax_agents  # noqa: E402
+from nuzero_tpu.evaluation.arena import Arena as JaxArena  # noqa: E402
+from nuzero_tpu.utils.checkpoint import restore_checkpoint as jax_restore  # noqa: E402
+from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta  # noqa: E402
+from nuzero_tpu_torch.evaluation import sweeps  # noqa: E402
+from nuzero_tpu_torch.evaluation.agents import PolicyAgent, RandomAgent  # noqa: E402
+from nuzero_tpu_torch.evaluation.arena import Arena  # noqa: E402
+from nuzero_tpu_torch.networks.convert import recurrent_net_state_dict  # noqa: E402
+from nuzero_tpu_torch.utils.checkpoint import (  # noqa: E402
+    latest_step, restore_checkpoint, save_checkpoint,
+)
+
+torch.set_num_threads(2)
+
+RUNS = ("scs_solo_r3", "scs_solo_prog_r3", "scs_solo_rvp_r5")
+JAX_RUNS = os.path.join(REPO, "runs")
+ASSETS = os.path.join(REPO, "nuzero_tpu_torch", "assets", "runs")
+
+
+def export_run(run_dir: str, out_dir: str) -> str:
+    """Write the latest Orbax checkpoint of ``run_dir`` as a port checkpoint
+    under ``out_dir/checkpoints`` (``{"params": state_dict, "step": update
+    count}``, same checkpoint step) and copy ``run_meta.yaml`` beside it.
+    Returns the checkpoint's path."""
+    tree, step = jax_restore(os.path.join(run_dir, "checkpoints"), "auto")
+    params = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in recurrent_net_state_dict(tree["params"]).items()}
+    if os.path.isdir(out_dir):
+        shutil.rmtree(out_dir)
+    os.makedirs(out_dir)
+    shutil.copyfile(os.path.join(run_dir, "run_meta.yaml"), os.path.join(out_dir, "run_meta.yaml"))
+    return save_checkpoint(os.path.join(out_dir, "checkpoints"), step,
+                           {"params": params, "step": int(tree["step"])})
+
+
+def _jax_size_env(size):
+    scenario = jax_load_scenario(sweeps.SCENARIO, seed=42, board_size=size,
+                                 turns=math.ceil(7 * size / 5))
+    return JaxSCSGame(scenario, randomize_vp=True)
+
+
+def _jax_net(run):
+    """(JAX manager, params) of a committed run, restored from Orbax."""
+    meta = load_run_meta(os.path.join(JAX_RUNS, run))
+    _, mgr = jax_build_from_meta(meta, REPO)
+    tree, _ = jax_restore(os.path.join(JAX_RUNS, run, "checkpoints"), "auto")
+    return mgr, tree["params"]
+
+
+def _torch_net(run):
+    """(port manager, variables) of a committed run, from its asset."""
+    _, mgr = build_from_meta(load_run_meta(os.path.join(ASSETS, run)), REPO, device="cpu")
+    tree, _ = restore_checkpoint(os.path.join(ASSETS, run, "checkpoints"), device="cpu")
+    return mgr, tree["params"]
+
+
+# --------------------------------------------------------------------------- #
+# The committed assets                                                        #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_assets_equal_a_fresh_export(run, tmp_path):
+    """Every tensor of the committed port checkpoint equals a fresh export of
+    the Orbax checkpoint; the step, the update count and ``run_meta.yaml``
+    too; the asset holds params and step only (no buffer, no optimizer)."""
+    fresh = export_run(os.path.join(JAX_RUNS, run), str(tmp_path / run))
+    committed = os.path.join(ASSETS, run)
+    assert latest_step(os.path.join(committed, "checkpoints")) == int(
+        os.path.basename(fresh)[5:13])
+    want = torch.load(fresh, weights_only=True)
+    got, _ = restore_checkpoint(os.path.join(committed, "checkpoints"), device="cpu")
+    assert set(got) == {"params", "step"}
+    assert got["step"] == want["step"]
+    assert got["params"].keys() == want["params"].keys()
+    for name, t in want["params"].items():
+        assert got["params"][name].dtype == torch.float32
+        assert torch.equal(got["params"][name], t), name
+    with open(os.path.join(committed, "run_meta.yaml")) as a, \
+            open(os.path.join(JAX_RUNS, run, "run_meta.yaml")) as b:
+        assert a.read() == b.read()
+    assert sorted(os.listdir(committed)) == ["checkpoints", "run_meta.yaml"]
+    assert sorted(os.listdir(os.path.join(committed, "checkpoints"))) == [
+        "FORMAT", os.path.basename(fresh)]
+
+
+def test_build_from_meta_matches_jax():
+    """The env and the net ``build_from_meta`` rebuilds: the same shapes as
+    the JAX package's, ``randomize_vp`` passed through, and the committed
+    parameters fitting the net exactly."""
+    for run in RUNS:
+        meta = load_run_meta(os.path.join(ASSETS, run))
+        jenv, jmgr = jax_build_from_meta(meta, REPO)
+        env, mgr = build_from_meta(meta, REPO, device="cpu")
+        assert env.randomize_vp == jenv.randomize_vp == bool(meta.get("randomize_vp"))
+        assert env.observation_shape == jenv.observation_shape
+        assert env.action_space_shape == jenv.action_space_shape
+        assert mgr.observation_shape == tuple(jmgr.observation_shape)
+        variables = mgr.init(torch.Generator().manual_seed(0))
+        _, tvars = _torch_net(run)
+        assert {k: tuple(v.shape) for k, v in variables.items()} == {
+            k: tuple(v.shape) for k, v in tvars.items()}
+
+
+# --------------------------------------------------------------------------- #
+# Network Check 2                                                             #
+# --------------------------------------------------------------------------- #
+
+SIZES = (5, 9, 15)
+ITERATIONS = (2, 6, 24)
+POSITIONS = 8
+# The port's outputs against JAX's, relative to the JAX output's max |.|
+# over the 8 positions, at every iteration count: the two frameworks sum
+# the f32 products in other orders.  Measured on the CPU: at most 7.2e-7
+# (logits) and 1.8e-7 (value), 24 iterations included, where the trained
+# cells do not amplify the differences.
+REL_TOL = 1e-5
+
+
+def reachable_positions(size, n=POSITIONS, seed=0):
+    """JAX states of ``n`` games on the resized map, each with its own drawn
+    layout; game b is taken after 2*b random legal moves."""
+    jenv = _jax_size_env(size)
+    state = jax.vmap(jenv.init)(jax.random.split(jax.random.key(seed), n))
+    step = jax.jit(jax.vmap(jenv.step))
+    legal_fn = jax.jit(jax.vmap(jenv.legal_mask))
+    rng = np.random.default_rng(seed)
+    taken = [None] * n
+    for t in range(2 * n):
+        for b in range(n):
+            if t == 2 * b:
+                taken[b] = jax.tree.map(lambda x, b=b: x[b], state)
+        legal = np.asarray(legal_fn(state))
+        actions = np.array([rng.choice(np.flatnonzero(row)) if row.any() else 0
+                            for row in legal], np.int32)
+        state = step(state, jnp.asarray(actions))
+    return jenv, jax.tree.map(lambda *xs: jnp.stack(xs), *taken)
+
+
+@pytest.fixture(scope="module")
+def positions():
+    """{size: (obs [8, C, size, size], legal [8, A])} from JAX playouts."""
+    out = {}
+    for size in SIZES:
+        jenv, states = reachable_positions(size)
+        out[size] = (np.asarray(jax.vmap(jenv.observe)(states)),
+                     np.asarray(jax.vmap(jenv.legal_mask)(states)))
+    return out
+
+
+@pytest.mark.parametrize("run", RUNS)
+def test_network_check_2(run, positions):
+    """Each committed net in both packages on the same observations: policy
+    logits and value within ``REL_TOL`` of the output's max |.|, and the
+    argmax over legal actions equal in every position."""
+    jmgr, jparams = _jax_net(run)
+    tmgr, tvars = _torch_net(run)
+    for size, (obs, legal) in positions.items():
+        for iters in ITERATIONS:
+            jp, jv, _ = jmgr.apply(jparams, jnp.asarray(obs), iters_to_do=iters)
+            with torch.no_grad():
+                tp, tv, _ = tmgr.apply(tvars, torch.from_numpy(obs.copy()), iters_to_do=iters)
+            jp, jv = np.asarray(jp), np.asarray(jv)
+            for name, got, want in (("logits", tp.numpy(), jp), ("value", tv.numpy(), jv)):
+                assert got.shape == want.shape
+                scale = np.abs(want).max()
+                err = np.abs(got - want).max()
+                assert err <= REL_TOL * scale, (
+                    f"{run} {size}x{size} {iters} iterations {name}: err {err:.3e}, "
+                    f"max|.| {scale:.3e}")
+            masked = np.where(legal, jp, -np.inf)
+            np.testing.assert_array_equal(
+                np.where(legal, tp.numpy(), -np.inf).argmax(-1), masked.argmax(-1),
+                f"{run} {size}x{size} {iters} iterations: legal argmax")
+
+
+# --------------------------------------------------------------------------- #
+# run.py preset 2: the iteration sweep                                        #
+# --------------------------------------------------------------------------- #
+
+SWEEP_POINTS = (2, 10, 16, 18, 20)
+# Points where the JAX package on the CPU (f32) does not reproduce the
+# committed curve, which was made on a TPU: at 10 iterations the
+# ``scs_solo_r3`` game turns on its first decision, a placement whose top-2
+# logit margin is 1.37e-3 (port and JAX alike on the CPU, whose logits
+# agree to ~3e-6); the JAX package on the CPU draws there, the TPU run won.
+# The port is held to the JAX package on the CPU at these points.
+CPU_DIFFERS_FROM_COMMITTED = {("scs_solo_r3", 10)}
+
+
+def _jax_iteration_sweep(run, iters, games):
+    jenv = JaxSCSGame(jax_load_scenario(sweeps.SCENARIO, seed=42))
+    _, mgr = jax_build_from_meta(load_run_meta(os.path.join(JAX_RUNS, run)), REPO)
+    cfg = sweeps.policy_test(run, "iterations", iters, iters, 2, games)
+    return JaxTestManager(jenv).test_from_config(cfg, manager=mgr, game_dir=JAX_RUNS)
+
+
+@pytest.mark.parametrize("run", ["scs_solo_r3", "scs_solo_prog_r3"])
+def test_iteration_sweep_equals_jax_and_the_committed_curve(run, tmp_path):
+    """The port's preset 2 at 2 games per point equals the JAX package's own
+    sweep on the CPU at the same points, and the committed curve (made on a
+    TPU) wherever the JAX package on the CPU reproduces it:
+    ``scs_solo_r3`` collapses at 18 iterations, the progressive loss's
+    ``scs_solo_prog_r3`` does not."""
+    record, seconds = sweeps.iteration_sweep(run, out_dir=str(tmp_path), iterations=[2],
+                                             games=2, device="cpu")
+    late, _ = sweeps.iteration_sweep(run, iterations=SWEEP_POINTS[2:], games=2, device="cpu")
+    mid, _ = sweeps.iteration_sweep(run, iterations=[10], games=2, device="cpu")
+    got = record["results"] + mid["results"] + late["results"]
+    with open(tmp_path / "iteration_sweep.json") as f:
+        assert json.load(f) == record
+    with open(os.path.join(JAX_RUNS, run, "plots", "iteration_sweep.json")) as f:
+        committed = json.load(f)
+    assert record["checkpoint_step"] == committed["checkpoint_step"]
+    committed = {r["iterations"]: r for r in committed["results"]}
+    assert len(seconds) == 1 and seconds[0]
+    for point in got:
+        iters = point["iterations"]
+        (_, jax_rates), = _jax_iteration_sweep(run, iters, 2)
+        rates = (point["p0_wr"], point["p1_wr"], point["draw_rate"])
+        assert rates == jax_rates, f"{run} at {iters} iterations"
+        c = committed[iters]
+        assert (rates == (c["p0_wr"], c["p1_wr"], c["draw_rate"])) != (
+            (run, iters) in CPU_DIFFERS_FROM_COMMITTED), f"{run} at {iters}"
+    assert [p["p1_wr"] for p in got] == (
+        [1.0, 0.0, 1.0, 0.0, 0.0] if run == "scs_solo_r3" else [1.0] * 5)
+
+
+# --------------------------------------------------------------------------- #
+# run.py preset 3: the size sweep's machinery                                 #
+# --------------------------------------------------------------------------- #
+
+
+def _jax_outcomes(arena, params, games, key):
+    """Per-game terminal values (0 where cut) and the drawn layouts of the
+    JAX arena's match from ``key``: ``Arena.play``'s own loop over its
+    compiled move, keeping the final states that ``play`` only counts."""
+    env = arena.env
+    rng, k_init = jax.random.split(key)
+    states = jax.vmap(env.init)(jax.random.split(k_init, games))
+    layouts = np.asarray(states.vp)
+    lengths = jnp.zeros(games, jnp.int32)
+    done = jax.vmap(env.terminal)(states)
+    moves = 0
+    while not bool(done.all()) and moves < env.max_game_length:
+        states, lengths, done, rng = arena._move(states, lengths, done, None, params, rng)
+        moves += 1
+    values = np.asarray(jax.vmap(env.terminal_value)(states))
+    return np.where(np.asarray(done), values, 0.0), layouts
+
+
+@pytest.mark.parametrize("size", [5, 9])
+@pytest.mark.parametrize("iters", [2, 24])
+def test_size_sweep_outcomes_equal_jax_game_for_game(size, iters):
+    """The size sweep's env (``sweeps.size_env``), the committed rvp net as
+    the port's ``PolicyAgent`` and the port's arena, with the JAX arena's
+    drawn layouts handed in: every game ends as it does in JAX, and the
+    match's counts equal the JAX arena's ``MatchStats``."""
+    games = 8
+    run = "scs_solo_rvp_r5"
+    jenv = _jax_size_env(size)
+    jmgr, jparams = _jax_net(run)
+    key = jax.random.key(size)
+    jarena = JaxArena(jenv, jax_agents.RandomAgent().policy(jenv),
+                      jax_agents.PolicyAgent(jmgr, jparams, iters).policy(jenv))
+    want, layouts = _jax_outcomes(jarena, jparams, games, key)
+    jstats = jarena.play(games, None, jparams, key)
+    assert (jstats.p0_wins, jstats.p1_wins) == (int((want > 0).sum()), int((want < 0).sum()))
+
+    env = sweeps.size_env(size, device="cpu")
+    tmgr, tvars = _torch_net(run)
+    arena = Arena(env, RandomAgent().policy(env), PolicyAgent(tmgr, tvars, iters).policy(env))
+    stats = arena.play(games, None, tvars, torch.Generator().manual_seed(0), vp=layouts)
+    np.testing.assert_array_equal(arena.outcomes.numpy(), want)
+    assert (stats.p0_wins, stats.p1_wins, stats.draws) == (
+        jstats.p0_wins, jstats.p1_wins, jstats.draws)
+    # Player 0 owns no unit here, so seat 0 never moves and the layouts
+    # decide: they differ across games.
+    assert len({layouts[b].tobytes() for b in range(games)}) > 1
+
+
+def test_size_sweep_writes_run_py_schema(tmp_path):
+    """Preset 3 on the port at 2 games per point (sizes 5 and 7, 2
+    iterations): the JSON carries the committed ``size_sweep.json``'s keys,
+    each point's rates sum to one, and each point timed every arena move."""
+    record, seconds = sweeps.size_sweep("scs_solo_rvp_r5", out_dir=str(tmp_path),
+                                        sizes=(5, 7), iterations=(2,), games=2, device="cpu")
+    with open(tmp_path / "size_sweep.json") as f:
+        assert json.load(f) == record
+    with open(os.path.join(JAX_RUNS, "scs_solo_rvp_r5", "plots", "size_sweep.json")) as f:
+        committed = json.load(f)
+    assert record.keys() == committed.keys()
+    for key in ("checkpoint_step", "train_size", "turn_rule"):
+        assert record[key] == committed[key]
+    (label, points), = record["curves"].items()
+    assert label == "2 iterations" and label in committed["curves"]
+    assert [p["board_size"] for p in points] == [5, 7]
+    for point in points:
+        assert point.keys() == committed["curves"][label][0].keys()
+        assert math.isclose(point["p0_wr"] + point["p1_wr"] + point["draw_rate"], 1.0)
+    assert len(seconds) == 2 and all(seconds)
+
+
+def test_arena_draws_each_games_layout_from_its_generator():
+    """On a ``randomize_vp`` env the arena's games start on layouts drawn
+    from the generator it is given: the same seed gives the same layouts
+    and outcomes, and the layouts differ across games."""
+    env = sweeps.size_env(7, device="cpu")
+    tmgr, tvars = _torch_net("scs_solo_rvp_r5")
+    arena = Arena(env, RandomAgent().policy(env), PolicyAgent(tmgr, tvars, 2).policy(env))
+    drawn = []
+    init = env.init
+
+    def recording_init(*args, **kwargs):
+        state = init(*args, **kwargs)
+        drawn.append(state.vp.clone())
+        return state
+
+    env.init = recording_init
+    outcomes = []
+    for _ in range(2):
+        arena.play(6, None, tvars, torch.Generator().manual_seed(5))
+        outcomes.append(arena.outcomes.clone())
+    assert torch.equal(drawn[0], drawn[1]) and torch.equal(outcomes[0], outcomes[1])
+    assert len({drawn[0][b].numpy().tobytes() for b in range(6)}) > 1
+    assert torch.equal(drawn[0], sweeps.size_env(7, device="cpu").init(
+        6, generator=torch.Generator().manual_seed(5)).vp)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--export"]:
+        raise SystemExit("usage: python tests/test_torch_transfer.py --export")
+    for name in RUNS:
+        path = export_run(os.path.join(JAX_RUNS, name), os.path.join(ASSETS, name))
+        print(f"{name}: {path} ({os.path.getsize(path)} bytes)")
