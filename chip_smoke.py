@@ -70,7 +70,11 @@ The training half:
    launches of the forward kernel, 27 of the dW kernel); then that 64f f32
    update (``scs_small.yaml``'s width) timed over 10 updates and profiled
    once (device busy time, idle share, hex-conv forward, dX and dW device
-   time);
+   time); and, run after the heavy phases (after 13), the repeat check
+   (``repeat_check``): the card gradient test's f32 update (16f, 3
+   iterations, B=8) ``REPEATS`` times on the same inputs and the f32 dW
+   kernel alone ``REPEATS`` times at each of that net's shapes, every
+   repeat bit-equal to the first (both kernels sum in a fixed order);
 8. training run: ``AlphaZero(...).run()`` on the flagship configs
    (``scs_contested256.yaml``, ``scs_contested256_search.yaml``) loaded by
    the port's schemas at full network and learner width, cut as
@@ -102,7 +106,7 @@ The non-recurrent networks, Tic-Tac-Toe and the evaluation layer:
    where the agent decides, 17 hex-conv launches per ``PolicyAgent``
    evaluation, seconds per arena move;
 12. TTT training through ``AlphaZero.run()`` on ``ttt_default.yaml`` and
-   ``ttt_search.yaml`` with the MLP, cut to ``TTT_STEPS`` steps, plots off,
+   ``ttt_search.yaml`` with the MLP, cut to ``TTT_STEPS`` steps, plots on,
    in-loop tests as configured (early, policy every 25, MCTS every 50,
    asynchronous): each step's self-play, train and eval seconds; every
    ``wr/*`` and ``nonloss/*`` key at steps 0, 25 and 50 under the async
@@ -131,6 +135,27 @@ The DeepThinking transfer path:
    ``solo_scout_5.yml``): four eager moves after ``RVP_LEG``'s warm-up,
    then the captured move's four replays under sync debug mode "error",
    each equal bit for bit, recycled games on new layouts.
+
+The rest of the training pipeline:
+
+14. ``run.py`` training preset 3's recipe through ``AlphaZero.run()``:
+   ``scs_small.yaml`` and ``scs_search.yaml`` loaded by the port's schemas,
+   ``solo_scout_5.yml`` with per-game victory points, the solo state set,
+   RecurrentNet 64f f32 (the committed ``scs_solo_rvp_r5``'s net), cut as
+   ``PRESET3_CUTS`` says.  (a) ``value_probe/0..5`` at steps 2 and 4 only,
+   in [-1, 1], the final probes on the card within 1e-5 of max|v| of the
+   CPU's, 27 f32-kernel launches per probe evaluation; (b) ``weights/abs_*``
+   ordered and equal to the CPU's within 1e-6 of ``abs_max``; (c) the plots,
+   or the one warning that names the missing matplotlib; (d) finite
+   losses, changed parameters, a checkpoint restored equal and
+   ``load_buffer_at_step(2)`` at the journal's ``buffer_seq``; (e) the
+   asynchronous mode (``PRESET3_ASYNC``): every step at least
+   ``update_delay`` long with a move-batch, one capture per step function,
+   no host sync inside a replay; (f) two game types (``PRESET3_TYPES``):
+   per-type losses and games, a graph per type, both types in the buffer,
+   27 and 37 launches per evaluation; (g) ``NUZERO_MFU`` and
+   ``NUZERO_TRACE_DIR`` (``PRESET3_TRACE``): ``train_flops_per_s`` > 0 and a
+   Chrome trace whose kernels include the f32 forward and dW kernels.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -178,11 +203,11 @@ SASS = {
 TRAIN_CONFIG = "configs/training/scs_contested256.yaml"
 SEARCH_CONFIG = "configs/search/scs_contested256_search.yaml"
 # The training run's cuts of the flagship configs (the files say 300
-# steps, a checkpoint every 50, in-loop tests and plots on, 512 actors, an
-# early fill of 128 games and 100 simulations).
+# steps, a checkpoint every 50, in-loop tests on, 512 actors, an early fill
+# of 128 games and 100 simulations).
 TRAIN_CUTS = {"training_steps": 3, "save_frequency": 3, "num_actors": 128,
               "early_fill_per_type": 16, "num_simulations": 30,
-              "in-loop tests": "off", "plots": "off"}
+              "in-loop tests": "off"}
 GRAD_BATCH = 16
 TIMED_UPDATES = 10
 # Phase 9: the MLP's TTT batch (the hex zoo runs at the self-play legs'
@@ -851,7 +876,6 @@ def training_run(card):
         saving=dataclasses.replace(cfg.saving, save_frequency=cuts["save_frequency"]),
         testing=dataclasses.replace(cfg.testing, early_testing=False, policy_test_frequency=0,
                                     mcts_test_frequency=0, goal_rush_opponent=False),
-        plotting=dataclasses.replace(cfg.plotting, plot_loss=False, plot_weights=False),
     )
     search = dataclasses.replace(load_search_config(os.path.join(REPO, SEARCH_CONFIG)),
                                  num_simulations=cuts["num_simulations"])
@@ -1229,12 +1253,11 @@ def ttt_training_run(card):
 
     cfg = load_training_config(os.path.join(REPO, TTT_CONFIG))
     cfg = dataclasses.replace(
-        cfg, running=dataclasses.replace(cfg.running, training_steps=TTT_STEPS),
-        plotting=dataclasses.replace(cfg.plotting, plot_loss=False))
+        cfg, running=dataclasses.replace(cfg.running, training_steps=TTT_STEPS))
     search = load_search_config(os.path.join(REPO, TTT_SEARCH))
     t = cfg.testing
-    log(f"TTT training run: {TTT_CONFIG} + {TTT_SEARCH}, MLP, cut to {TTT_STEPS} steps, "
-        f"plot_loss off; tests early {t.early_testing}, policy every "
+    log(f"TTT training run: {TTT_CONFIG} + {TTT_SEARCH}, MLP, cut to {TTT_STEPS} steps; "
+        f"tests early {t.early_testing}, policy every "
         f"{t.policy_test_frequency}, MCTS every {t.mcts_test_frequency}, asynchronous "
         f"{t.asynchronous_testing}")
     env = TicTacToe("cuda")
@@ -1684,6 +1707,406 @@ def rvp_selfplay_leg(card):
         f"{statistics.median(replayed[1:]):.4f} s, capture {capture_s:.2f} s  [{card}]")
 
 
+# Phase 7's repeat check: the card gradient test's update
+# (tests/test_torch_cuda.py::test_recurrent_net_grad_matches_cpu) and the f32
+# dW kernel alone at each of that net's shapes, repeated on the same inputs.
+REPEATS = 200
+# Phase 14: run.py training preset 3's recipe (the recipe of the committed
+# scs_solo_rvp_r5): scs_small.yaml and scs_search.yaml, solo_scout_5.yml with
+# per-game victory points, the solo state set and RecurrentNet 64f f32
+# (2 blocks, recall, hex).  The files say 500 steps, plots every 25 steps, a
+# checkpoint every 50, no weight stats, 300 simulations, an early fill of 128
+# games and 32 games a step; everything not cut here is as in the files.
+PRESET3_TRAIN = "configs/training/scs_small.yaml"
+PRESET3_SEARCH = "configs/search/scs_search.yaml"
+PRESET3_CUTS = {"training_steps": 4, "plot_frequency": 2, "save_frequency": 2,
+                "plot_weights": True, "num_simulations": 30, "early_fill_per_type": 16,
+                "num_games_per_type_per_step": 32}
+# (e) the asynchronous mode, (f) two game types, (g) NUZERO_MFU and
+# NUZERO_TRACE_DIR, each on top of PRESET3_CUTS; (g) is cut further so that
+# the trace of its step stays small.
+PRESET3_ASYNC = {"running_mode": "asynchronous", "update_delay": 2.0, "training_steps": 3}
+PRESET3_TYPES = {"train_iterations": (4, 6), "pred_iterations": (4, 6), "training_steps": 2}
+PRESET3_TRACE = {"training_steps": 2, "num_actors": 16, "early_fill_per_type": 4,
+                 "num_games_per_type_per_step": 4, "num_simulations": 4, "num_samples": 2}
+
+
+def repeat_check(card):
+    """The f32 update of the card gradient test (16f, 3 iterations, B=8 on
+    5x5), ``REPEATS`` times on the same inputs, each gradient bit-equal to
+    the first and every tensor within 1e-4 of its largest of the CPU's;
+    then the f32 dW kernel alone ``REPEATS`` times at each hex-conv shape of
+    that net, bit-equal to the first.  The f32 forward and dW kernels sum in
+    a fixed order (``csrc/hexconv_dw.cu``), so any difference is a race."""
+    import numpy as np
+    import torch
+
+    from nuzero_tpu_torch.networks.blocks import HexConv
+    from nuzero_tpu_torch.networks.recurrent import RecurrentNet
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_dw_cuda
+
+    rng = np.random.default_rng(19)
+    obs = torch.from_numpy((rng.random((8, 86, 5, 5)) < 0.2).astype(np.float32))
+    cpu = RecurrentNet(86, 21, num_filters=16, num_blocks=2)
+    net = RecurrentNet(86, 21, num_filters=16, num_blocks=2).cuda()
+    net.load_state_dict(cpu.state_dict())
+
+    def grads(module, x):
+        params = dict(module.named_parameters())
+        loss = sum((o.float() ** 2).sum() for o in module(x, 3)[0])
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    want = grads(cpu, obs)
+    x = obs.cuda()
+    first = None
+    t0 = time.perf_counter()
+    for i in range(REPEATS):
+        got = grads(net, x)
+        if first is None:
+            first = {k: g.clone() for k, g in got.items()}
+            ratios = {k: (g.cpu() - want[k]).abs().max().item() / want[k].abs().max().item()
+                      for k, g in got.items()}
+            over = {k: r for k, r in ratios.items() if r > 1e-4}
+            if over:
+                raise AssertionError("card gradients over 1e-4 of their largest: " + ", ".join(
+                    f"{k} {r:.2e}" for k, r in sorted(over.items(), key=lambda kv: -kv[1])))
+            continue
+        differ = [k for k in got if not torch.equal(got[k], first[k])]
+        if differ:
+            raise AssertionError(f"repeat {i} of the update differs from the first in {differ}")
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    shapes = sorted({tuple(m.weight.shape[1:]) for m in net.modules() if isinstance(m, HexConv)})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for cin, cout in shapes:
+        xs = torch.randn((8, 5, 5, cin), generator=gen, device="cuda")
+        dy = torch.randn((8, 5, 5, cout), generator=gen, device="cuda")
+        ref = hex_conv_dw_cuda(xs, dy).clone()
+        for i in range(REPEATS - 1):
+            if not torch.equal(hex_conv_dw_cuda(xs, dy), ref):
+                raise AssertionError(f"f32 dW {cin}->{cout}: repeat {i + 1} differs from the "
+                                     "first")
+    log(f"repeat check (phase 7): the 16f f32 update (B=8, 3 iterations) {REPEATS} times in "
+        f"{update_s:.2f} s, every gradient bit-equal to the first, worst "
+        f"{max(ratios.values()):.2e} of its tensor's largest against the CPU; the f32 dW "
+        f"kernel {REPEATS} times at each of {len(shapes)} shapes "
+        f"({', '.join(f'{a}->{b}' for a, b in shapes)}), bit-equal  [{card}]")
+
+
+def preset3_config(**cuts):
+    """(TrainingConfig, SearchParams) of the recipe, cut by PRESET3_CUTS and
+    then by ``cuts`` (names of RunningConfig, PlottingConfig, SavingConfig,
+    LearningConfig and RecurrentOptions fields, and num_simulations)."""
+    from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+
+    cuts = {**PRESET3_CUTS, **cuts}
+    cfg = load_training_config(os.path.join(REPO, PRESET3_TRAIN))
+    sections = {}
+    for name in ("running", "plotting", "saving", "learning", "recurrent"):
+        section = getattr(cfg, name)
+        fields = {f.name for f in dataclasses.fields(section)}
+        sections[name] = dataclasses.replace(
+            section, **{k: v for k, v in cuts.items() if k in fields})
+    search = dataclasses.replace(load_search_config(os.path.join(REPO, PRESET3_SEARCH)),
+                                 num_simulations=cuts["num_simulations"])
+    return dataclasses.replace(cfg, **sections), search
+
+
+def preset3_coordinator(cfg, search, run_dir, device="cuda", randomize_vp=(True,)):
+    """``AlphaZero`` on the recipe's env (one per entry of ``randomize_vp``),
+    net and state set, on ``device``."""
+    import torch
+
+    from nuzero_tpu_torch.envs.scs.game import SCSGame
+    from nuzero_tpu_torch.envs.scs.scenario import load_scenario
+    from nuzero_tpu_torch.evaluation import solo_state_set
+    from nuzero_tpu_torch.networks.manager import NetworkManager
+    from nuzero_tpu_torch.networks.recurrent import RecurrentNet
+    from nuzero_tpu_torch.training.pipeline import AlphaZero
+
+    path = os.path.join(REPO, "configs", "scenarios", ARENA_SCENARIO)
+    envs = [SCSGame(load_scenario(path, seed=42), randomize_vp=r, device=device)
+            for r in randomize_vp]
+    env = envs[0]
+    net = RecurrentNet(env.observation_shape[0], env.action_space_shape[0], num_filters=64,
+                       num_blocks=2, recall=True, hex=True, dtype=torch.float32).to(device)
+    return AlphaZero(envs if len(envs) > 1 else env,
+                     NetworkManager(net, env.observation_shape), cfg, search,
+                     run_dir=run_dir, state_set=solo_state_set(env))
+
+
+def preset3_run(card):
+    """Phase 14: the recipe through ``AlphaZero.run()`` on the card; returns
+    the kernel launches of its main run."""
+    import warnings
+
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.training import pipeline
+    from nuzero_tpu_torch.utils import plots
+
+    f32, dw = hexconv_kernel.KERNELS[torch.float32], hexconv_kernel.DW_KERNELS[torch.float32]
+    t_phase = time.perf_counter()
+    log(f"preset 3 recipe: {PRESET3_TRAIN} + {PRESET3_SEARCH}, {ARENA_SCENARIO} with per-game "
+        f"victory points, the solo state set, RecurrentNet 64f f32 (2 blocks, recall, hex); "
+        f"cut to " + ", ".join(f"{k} {v}" for k, v in PRESET3_CUTS.items()))
+    cfg, search = preset3_config()
+    steps = cfg.running.training_steps
+    with tempfile.TemporaryDirectory() as run_dir:
+        az = preset3_coordinator(cfg, search, run_dir)
+        initial = az.learner.init_state(torch.Generator(device="cuda").manual_seed(0))
+        before = {k: v.clone() for k, v in initial.params.items()}
+        # (c): the plot module warns once per process where matplotlib is
+        # absent; start this phase's run with a fresh check.
+        plots._pyplot.cache_clear()
+        torch.cuda.synchronize()
+        hexconv_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state = az.run(seed=0, initial_state=initial)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(hexconv_kernel.launch_count)
+        records = az.journal.load()
+        for w in caught:
+            if w.category is not plots.MissingMatplotlibWarning:
+                log(f"warning during the run: {w.category.__name__}: {w.message}")
+        missing = [w for w in caught if w.category is plots.MissingMatplotlibWarning]
+        if plots._pyplot() is None:
+            if len(missing) != 1:
+                raise AssertionError(f"{len(missing)} matplotlib warnings, expected one")
+            log(f"(c) plots: {missing[0].message}")
+        else:
+            written = sorted(os.listdir(os.path.join(run_dir, "plots")))
+            if not written:
+                raise AssertionError("matplotlib is installed and no plot was written")
+            log(f"(c) plots written: {', '.join(written)}")
+
+        # (d) the run.
+        if [r["step"] for r in records] != list(range(1, steps + 1)):
+            raise AssertionError(f"journal steps {[r['step'] for r in records]}")
+        if state.step != steps * cfg.learning.num_samples:
+            raise AssertionError(f"{state.step} updates applied")
+        if not all(math.isfinite(r["loss/combined"]) for r in records):
+            raise AssertionError("non-finite training losses")
+        if all(torch.equal(before[k], state.params[k]) for k in before):
+            raise AssertionError("the parameters did not change")
+        if not (counts[f32] and counts[dw]):
+            raise AssertionError(f"the run never launched {f32} or {dw}: {counts}")
+        for r in records:
+            log(f"preset 3 step {r['step']}: {r['games']} games, buffer {r['buffer_games']} "
+                f"games, loss {r['loss/combined']:.4f}; self-play {r['time/selfplay']:.2f} s, "
+                f"train {r['time/train']:.3f} s, eval {r['time/eval']:.4f} s  [{card}]")
+        log(f"preset 3 run: {seconds:.1f} s for {steps} steps, {state.step} updates, "
+            f"{int(az.buffer.games_added)} games; kernel launches {counts}")
+
+        # (a) value probes.
+        probe_keys = [f"value_probe/{i}" for i in range(6)]
+        probed = [r["step"] for r in records if any(k in r for k in probe_keys)]
+        if probed != [2, 4]:
+            raise AssertionError(f"value probes at steps {probed}, expected [2, 4]")
+        for r in records:
+            if r["step"] in probed:
+                vals = [r[k] for k in probe_keys]
+                if not all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in vals):
+                    raise AssertionError(f"probe values at step {r['step']}: {vals}")
+        torch.cuda.synchronize()
+        hexconv_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        got = az.probe_values(state.params)
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        probe_counts = dict(hexconv_kernel.launch_count)
+        if probe_counts != {**{k: 0 for k in probe_counts}, f32: 27}:
+            raise AssertionError(f"one probe evaluation launched {probe_counts}, expected 27 "
+                                 f"of {f32}")
+        cpu_params = {k: v.cpu() for k, v in state.params.items()}
+        cpu = preset3_coordinator(cfg, search, None, device="cpu")
+        want = cpu.probe_values(cpu_params)
+        err, scale = max(abs(a - b) for a, b in zip(got, want)), max(abs(v) for v in want)
+        if err > 1e-5 * scale:
+            raise AssertionError(f"probe values on the card {got} vs CPU {want}")
+        if [records[-1][k] for k in probe_keys] != got:
+            raise AssertionError("the last journaled probes are not the final params' probes")
+        log(f"(a) value probes at steps {probed}: {', '.join(f'{v:+.6f}' for v in got)}; "
+            f"card vs CPU (plain) max err {err:.2e} of max|v| {scale:.4f}; one probe "
+            f"evaluation {probe_ms:.2f} ms (host clock, synchronized), 27 launches of {f32}  "
+            f"[{card}]")
+
+        # (b) weight stats.
+        w_keys = ("weights/abs_max", "weights/abs_min", "weights/abs_mean")
+        weighed = [r for r in records if w_keys[0] in r]
+        if [r["step"] for r in weighed] != [2, 4]:
+            raise AssertionError(f"weight stats at steps {[r['step'] for r in weighed]}")
+        for r in weighed:
+            w_max, w_min, w_mean = (r[k] for k in w_keys)
+            if not (0 <= w_min <= w_mean <= w_max and w_max > 0):
+                raise AssertionError(f"weight stats at step {r['step']}: {w_max, w_min, w_mean}")
+        want_w = cpu.weight_stats(cpu_params)
+        err_w = max(abs(records[-1][k] - v) for k, v in zip(w_keys, want_w))
+        if err_w > 1e-6 * want_w[0]:
+            raise AssertionError(f"weight stats {[records[-1][k] for k in w_keys]} vs CPU "
+                                 f"{want_w}")
+        log(f"(b) weight stats at step {steps}: max {want_w[0]:.6f}, min {want_w[1]:.3e}, "
+            f"mean {want_w[2]:.6f}; card vs CPU max err {err_w:.2e}")
+
+        # (d) the checkpoint restores equal; the partial buffer load.
+        resumed = preset3_coordinator(cfg, search, run_dir)
+        restored, step = resumed.load("auto")
+        if step != steps or restored.step != state.step:
+            raise AssertionError(f"restored step {step} / {restored.step}")
+        for k in state.params:
+            if not (torch.equal(restored.params[k], state.params[k])
+                    and torch.equal(restored.opt_state["mu"][k], state.opt_state["mu"][k])):
+                raise AssertionError(f"restored {k} differs")
+        if not torch.equal(resumed.buffer.states, az.buffer.states):
+            raise AssertionError("restored buffer differs")
+        partial = preset3_coordinator(cfg, search, run_dir)
+        seq_at_2 = next(r["buffer_seq"] for r in records if r["step"] == 2)
+        if not partial.load_buffer_at_step(2):
+            raise AssertionError("load_buffer_at_step(2) found no buffer")
+        if (int(partial.buffer.games_added) != seq_at_2
+                or int(partial.buffer.seq.max()) != seq_at_2 - 1):
+            raise AssertionError(f"partial load: {int(partial.buffer.games_added)} games, "
+                                 f"largest seq {int(partial.buffer.seq.max())}; journal "
+                                 f"buffer_seq {seq_at_2}")
+        log(f"(d) checkpoint of step {step} restored equal (params, Adam moments, buffer); "
+            f"load_buffer_at_step(2): {seq_at_2} games, largest seq {seq_at_2 - 1}, as the "
+            f"journal's buffer_seq")
+        del az, resumed, partial, cpu
+
+    # (e) the asynchronous mode: no host sync inside a replay, one capture
+    # per step function, every step at least update_delay long with at least
+    # one move-batch.
+    from nuzero_tpu_torch.training import selfplay
+
+    cfg, search = preset3_config(**PRESET3_ASYNC)
+    replay, capture = selfplay.SelfplayGraph.replay, pipeline.capture_selfplay_step
+    captures, replays = [], [0]
+
+    def checked_replay(graph):
+        replays[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return replay(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def counted_capture(step_fn, *args, **kwargs):
+        captures.append(step_fn)
+        return capture(step_fn, *args, **kwargs)
+
+    selfplay.SelfplayGraph.replay = checked_replay
+    pipeline.capture_selfplay_step = counted_capture
+    try:
+        with tempfile.TemporaryDirectory() as run_dir:
+            az = preset3_coordinator(cfg, search, run_dir)
+            batches = []
+            selfplay_for = az._selfplay_for
+
+            def counted(*args):
+                before_b = az._sp_batches
+                out = selfplay_for(*args)
+                batches.append(az._sp_batches - before_b)
+                return out
+
+            az._selfplay_for = counted
+            az.run(seed=0)
+            torch.cuda.synchronize()
+            records = az.journal.load()
+    finally:
+        selfplay.SelfplayGraph.replay = replay
+        pipeline.capture_selfplay_step = capture
+    step_fns = {az.sp_steps[0], az.sp_steps_early[0]}
+    if len(captures) != len(step_fns) or set(captures) != step_fns:
+        raise AssertionError(f"{len(captures)} captures for {len(step_fns)} step functions")
+    delay = cfg.running.update_delay
+    if (len(batches) != cfg.running.training_steps or min(batches) < 1
+            or min(r["step_time_s"] for r in records) < delay):
+        raise AssertionError(f"asynchronous steps: move-batches {batches}, seconds "
+                             f"{[r['step_time_s'] for r in records]}")
+    for r, n in zip(records, batches):
+        log(f"(e) asynchronous step {r['step']}: {n} move-batches, {r['games']} games, "
+            f"{r['step_time_s']:.3f} s (self-play {r['time/selfplay']:.3f} s, train "
+            f"{r['time/train']:.3f} s, eval {r['time/eval']:.4f} s)  [{card}]")
+    log(f"(e) asynchronous mode, update_delay {delay} s: {len(captures)} captures for "
+        f"{len(step_fns)} step functions, {replays[0]} replays, none with a host sync "
+        f"(sync debug mode \"error\")")
+    del az
+
+    # (f) two game types: the solo map with fixed and with per-game victory
+    # points, at 4 and 6 iterations.
+    cfg, search = preset3_config(**PRESET3_TYPES)
+    with tempfile.TemporaryDirectory() as run_dir:
+        az = preset3_coordinator(cfg, search, run_dir, randomize_vp=(False, True))
+        per_eval = {}
+        apply = az.manager.apply
+
+        def counted_apply(variables, obs, iters_to_do=2, interim_thought=None):
+            start = hexconv_kernel.launch_count[f32]
+            out = apply(variables, obs, iters_to_do, interim_thought)
+            per_eval.setdefault(iters_to_do, set()).add(hexconv_kernel.launch_count[f32] - start)
+            return out
+
+        az.manager.apply = counted_apply
+        az.run(seed=0)
+        torch.cuda.synchronize()
+        records = az.journal.load()
+    if per_eval != {4: {27}, 6: {37}}:
+        raise AssertionError(f"launches per evaluation by iteration count: {per_eval}")
+    graphs = [az._graphs.get(step) for step in az.sp_steps]
+    if None in graphs or graphs[0] is graphs[1] or len(az._graphs) != 4:
+        raise AssertionError(f"{len(az._graphs)} graphs for two game types")
+    types = set(az.buffer.game_type[az.buffer.length > 0].tolist())
+    keys = ("loss/type0", "loss/type1", "selfplay/type0/games", "selfplay/type1/games")
+    if types != {0, 1} or not all(k in r for r in records for k in keys):
+        raise AssertionError(f"buffer types {types}, records {[sorted(r) for r in records]}")
+    for r in records:
+        log(f"(f) two types, step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.4f}" if isinstance(r[k], float) else f"{k} {r[k]}" for k in keys)
+            + f"; self-play {r['time/selfplay']:.2f} s, train {r['time/train']:.3f} s  [{card}]")
+    log("(f) two types: one graph per type and step function (4), the buffer holds both "
+        "types, 27 and 37 launches of the f32 kernel per evaluation of each type")
+    del az
+
+    # (g) NUZERO_MFU and NUZERO_TRACE_DIR.
+    cfg, search = preset3_config(**PRESET3_TRACE)
+    with tempfile.TemporaryDirectory() as run_dir:
+        trace_dir = os.path.join(run_dir, "trace")
+        saved = {k: os.environ.get(k) for k in ("NUZERO_MFU", "NUZERO_TRACE_DIR")}
+        os.environ.update(NUZERO_MFU="1", NUZERO_TRACE_DIR=trace_dir)
+        try:
+            az = preset3_coordinator(cfg, search, run_dir)
+            state = az.run(seed=0)
+            torch.cuda.synchronize()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        records = az.journal.load()
+        flops = [r.get("train_flops_per_s", 0) for r in records]
+        traces = os.listdir(trace_dir)
+        if not (flops and min(flops) > 0) or len(traces) != 1:
+            raise AssertionError(f"train_flops_per_s {flops}, trace files {traces}")
+        path = os.path.join(trace_dir, traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        size = os.path.getsize(path)
+    for kernel in (f32, dw):
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"the trace holds no {kernel} ({len(names)} kernel names)")
+    log(f"(g) NUZERO_MFU: train_flops_per_s {flops} ({az.train_flops(state.params):.6g} "
+        f"FLOPs per update, B={cfg.learning.batch_size}); "
+        f"NUZERO_TRACE_DIR: {traces[0]}, {size / 1e6:.1f} MB, {len(events)} events, its "
+        f"kernels include {f32} and {dw}  [{card}]")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1885,13 +2308,22 @@ def main() -> int:
 
     # --- 13. the transfer path: the committed runs, the sweeps, randomize_vp
     transfer_launches = transfer_check(card)
-    kernels[[k["name"] for k in kernels].index(KERNELS[torch.float32])]["transfer"] = {
+    names = [k["name"] for k in kernels]
+    kernels[names.index(KERNELS[torch.float32])]["transfer"] = {
         "launches": transfer_launches,
         "per_evaluation": transfer[f"{SWEEP_SIZES[-1]}x{SWEEP_SIZES[-1]}, {SWEEP_ITERS[-1]} "
                                    f"iterations"],
         "at": f"B={SWEEP_BATCH} {SWEEP_SIZES[-1]}x{SWEEP_SIZES[-1]}, {SWEEP_ITERS[-1]} "
               f"iterations",
     }
+
+    # --- 7. (continued) the repeat check, after the heavy phases
+    repeat_check(card)
+
+    # --- 14. run.py preset 3's recipe
+    preset3_counts = preset3_run(card)
+    for kernel in (KERNELS[torch.float32], DW_KERNELS[torch.float32]):
+        kernels[names.index(kernel)]["preset3"] = {"launches": preset3_counts[kernel]}
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -19,7 +19,8 @@ Neighbor reads are plain gathers through the static neighbor tables.
 (uniform over each owner's board half), as the JAX engine's ``init(key)``
 does; the layout then lives in the state.
 
-Not ported yet: ``simple_state`` and the render helpers.
+``simple_state`` builds the value probes' artificial states.  Not ported
+yet: the render helpers.
 """
 
 from __future__ import annotations
@@ -857,3 +858,72 @@ class SCSGame(Env):
         chans.append(player.view(B, 1, 1, 1).expand(B, 1, R, C))
 
         return torch.cat(chans, dim=1)
+
+    # -- artificial probe states ------------------------------------------- #
+
+    def simple_state(self, turn: int, placements) -> SCSState:
+        """A batch of one artificial mid-game state for value probing (the
+        JAX engine's ``simple_state``; ref ``set_simple_game_state``,
+        SCS_Game.py:948-978).
+
+        ``placements``: ``(player, row, col)`` triples, player in {0, 1}.
+        Each player's units take that player's earliest reinforcement slots,
+        stacked in the order given.  Every reinforcement arriving at or
+        before ``turn`` is cleared.  The state starts at stage 0 of ``turn``
+        and is auto-advanced, so a probe sits at player 0's movement
+        sub-phase with every placed unit available.  Built on the host, once,
+        on the env's device."""
+        R, C, K, S = self.R, self.C, self.K, self.S
+        n_per = [0, 0]
+        board = np.full((R, C, K), -1, np.int32)
+        row = np.zeros(2 * S, np.int32)
+        col = np.zeros(2 * S, np.int32)
+        alive = np.zeros(2 * S, bool)
+        for p, r, c in placements:
+            if p not in (0, 1):
+                raise ValueError(f"player must be 0 or 1, got {p}")
+            if n_per[p] >= S:
+                raise ValueError(f"scenario only has {S} unit slots for player {p}")
+            uid = p * S + n_per[p]
+            n_per[p] += 1
+            lvl = int((board[r, c] >= 0).sum())
+            if lvl >= K:
+                raise ValueError(f"stacking limit {K} exceeded at ({r},{c})")
+            board[r, c, lvl] = uid
+            row[uid], col[uid] = r, c
+            alive[uid] = True
+
+        reinf_turn = np.asarray(self.scenario.reinf_turn)
+        reinf_count = np.asarray(self.scenario.reinf_count)
+        reinf_next = np.zeros(2, np.int32)
+        for p in range(2):
+            cleared = int((reinf_turn[p, :reinf_count[p]] <= turn).sum())
+            reinf_next[p] = max(cleared, n_per[p])
+
+        def one(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)[None]
+
+        alive_t = one(alive, torch.bool)
+        state = SCSState(
+            board=one(board, I32),
+            alive=alive_t,
+            placed=alive_t.clone(),
+            row=one(row, I32),
+            col=one(col, I32),
+            mov=torch.where(alive_t, self.u_allowance, 0.0),
+            status=one(np.zeros(2 * S), I32),
+            reinf_next=one(reinf_next, I32),
+            turn=one(turn, I32),
+            stage=one(0, I32),
+            length=one(0, I32),
+            terminal=one(False, torch.bool),
+            terminal_value=one(0.0, F32),
+            has_target=one(False, torch.bool),
+            target_row=one(0, I32),
+            target_col=one(0, I32),
+            is_attacker=one(np.zeros(2 * S, bool), torch.bool),
+            attacker_seq=one(np.full(2 * S, 10**6), I32),
+            n_attackers=one(0, I32),
+            vp=self.vp[None].clone(),
+        )
+        return self._update_env(state)

@@ -22,7 +22,9 @@ loaded by ``cp_number: auto``:
   (``checkpoint_step``, ``train_size``, ``turn_rule``, ``curves``).
 
 The JSON has ``run.py``'s schema.  It goes into ``out_dir``, never into the
-run's directory.  No plots are drawn.
+run's directory, beside the sweep's plot (``iteration_sweep.png``,
+``size_sweep.png``; ``utils/plots.py``, which draws nothing where
+matplotlib is not installed).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from nuzero_tpu_torch.envs.scs.game import SCSGame
 from nuzero_tpu_torch.envs.scs.scenario import load_scenario
 from nuzero_tpu_torch.evaluation.manager import TestManager
 from nuzero_tpu_torch.utils.checkpoint import latest_step
+from nuzero_tpu_torch.utils.plots import plot_iteration_sweep, plot_size_sweep
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GAME_DIR = os.path.join(REPO, "nuzero_tpu_torch", "assets", "runs")
@@ -145,6 +148,10 @@ def iteration_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[s
                     for v, wr in results],
     }
     _write(record, out_dir, "iteration_sweep.json")
+    if out_dir:
+        plot_iteration_sweep(
+            results, os.path.join(out_dir, "iteration_sweep.png"),
+            title=f"{run_name} step {step}: win rate vs recurrent iterations", seat=1)
     return record, tm.batch_seconds
 
 
@@ -154,13 +161,14 @@ def size_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] =
     """Preset 3 -> (the ``size_sweep.json`` record, the seconds of each arena
     move of each point, curve by curve)."""
     manager, step = _run(run_name, game_dir, device)
-    curves, seconds = {}, []
+    curves, raw, seconds = {}, {}, []
     for iters in iterations:
         tm = TimedTestManager(size_env(BASE_SIZE, device))
         results = tm.test_from_config(
             policy_test(run_name, "board_size", *_evenly(sizes), games, iterations=iters),
             manager=manager, game_dir=game_dir, seed=seed,
             env_factory=lambda size: size_env(size, device))
+        raw[f"{iters} iterations"] = results
         curves[f"{iters} iterations"] = [
             {"board_size": v, "p0_wr": wr[0], "p1_wr": wr[1], "draw_rate": wr[2]}
             for v, wr in results]
@@ -168,6 +176,11 @@ def size_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] =
     record = {"checkpoint_step": step, "train_size": BASE_SIZE, "turn_rule": TURN_RULE,
               "curves": curves}
     _write(record, out_dir, "size_sweep.json")
+    if out_dir:
+        plot_size_sweep(
+            raw, os.path.join(out_dir, "size_sweep.png"),
+            title=f"{run_name} step {step}: 5x5-trained scout vs board size", seat=1,
+            train_size=BASE_SIZE)
     return record, seconds
 
 
@@ -175,7 +188,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="run.py's testing presets 2 and 3 on the port")
     ap.add_argument("--preset", type=int, choices=(2, 3), required=True)
     ap.add_argument("--name", required=True, help="the run's directory under --game-dir")
-    ap.add_argument("--out", required=True, help="directory for the sweep's JSON")
+    ap.add_argument("--out", required=True, help="directory for the sweep's JSON and plot")
     ap.add_argument("--games", type=int, default=64, help="games per point")
     ap.add_argument("--game-dir", default=GAME_DIR)
     ap.add_argument("--device", default="cuda")

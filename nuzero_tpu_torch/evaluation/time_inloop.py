@@ -148,19 +148,19 @@ def _leg(name: str, max_moves) -> dict:
         # Captures the move's graph and fills the buffer, as the early fill.
         az._rng = torch.Generator(device="cuda").manual_seed(0)
         az._host_rng = torch.Generator().manual_seed(0)
-        az._selfplay_until(state, sp, az.sp_step, cfg.early_fill_per_type)
+        az._selfplay_until(state, sp, az.sp_steps[0], cfg.early_fill_per_type)
         if name == "selfplay":
             main = _concurrent(az, state, lambda: az._selfplay_until(
-                state, sp, az.sp_step, cfg.num_games_per_type_per_step))
+                state, sp, az.sp_steps[0], cfg.num_games_per_type_per_step))
         elif name == "replay":
-            graph = az._graphs[az.sp_step]
+            graph = az._graphs[az.sp_steps[0]]
 
             def replay():
                 graph.replay()
                 torch.cuda.current_stream().synchronize()
             main = _concurrent(az, state, replay)
         elif name == "queued":
-            graph, events = az._graphs[az.sp_step], collections.deque()
+            graph, events = az._graphs[az.sp_steps[0]], collections.deque()
 
             def queued():
                 graph.replay()

@@ -14,7 +14,10 @@ Activations are NHWC and weights ``[7, Cin, Cout]``, as in the JAX package.
 
 ``hex_conv`` applies ``HexConvFunction``: a CPU tensor goes to the plain
 PyTorch versions below, a CUDA tensor to the hand-written kernels
-(``ops/cuda``), forward and backward alike.  The backward is the JAX
+(``ops/cuda``), forward and backward alike.  A tensor on the ``meta``
+device, which holds shapes and no data, takes the plain versions too: the
+training pipeline counts a forward's FLOPs that way (``NUZERO_MFU``),
+launching nothing.  The backward is the JAX
 package's VJP of the same function (``nuzero_tpu/ops/hexconv.py:188-211``):
 
 * dX is a hex conv of dY with the mirrored taps (``mirror_taps``): the hex
@@ -32,6 +35,10 @@ import numpy as np
 import torch
 
 from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda, hex_conv_dw_cuda
+
+#: The devices whose tensors take the plain versions; every other device's
+#: tensors take the kernels.
+PLAIN_DEVICES = ("cpu", "meta")
 
 #: tap -> (row_offset, col_offset) per column parity
 HEX_DIRECTIONS = ("c", "n", "ne", "se", "s", "sw", "nw")
@@ -154,8 +161,8 @@ def hex_conv_dual3x3(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 class HexConvFunction(torch.autograd.Function):
     """The hex conv with its backward on the same device path as its
-    forward: the plain versions for CPU tensors, the CUDA kernels for CUDA
-    tensors (dX on the forward kernel with ``mirror_taps``, dW on the dW
+    forward: the plain versions for CPU (and meta) tensors, the CUDA
+    kernels for CUDA tensors (dX on the forward kernel with ``mirror_taps``, dW on the dW
     kernel), which raise rather than fall back.  dX and dW come out in the
     operands' dtype, as the JAX VJP through the bf16 casts gives them.
     dX is computed only where the input needs it (a network's stem reads
@@ -164,7 +171,7 @@ class HexConvFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weights):
         ctx.save_for_backward(x, weights)
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return hex_conv_plain(x, weights)
         return hex_conv_cuda(x, weights)
 
@@ -172,7 +179,7 @@ class HexConvFunction(torch.autograd.Function):
     def backward(ctx, dy):
         x, weights = ctx.saved_tensors
         dy = dy.contiguous()
-        cpu = x.device.type == "cpu"
+        cpu = x.device.type in PLAIN_DEVICES
         dx = dw = None
         # dW before dX: on the card, every forward-kernel launch after an
         # update's first dW launch is then a dX (chip_smoke.py's profile

@@ -2,16 +2,29 @@
 ``nuzero_tpu/training/pipeline.py``; behavioral target the reference's
 ``Training/AlphaZero.py`` ``run()``).
 
-The sequential running mode: an early buffer fill with softened
-exploration, then per training step self-play until the step's games
-finish, the learner's updates (the samples or the epochs method), a
-journal record and, every ``save_frequency`` steps, a checkpoint.  Self-
-play, replay and SGD all work on tensors on the env's device; the host
-loop sequences them and does the IO.  On the card each self-play move is
-a replay of a CUDA graph of the move (``selfplay.capture_selfplay_step``,
-captured at first use), which reads nothing on the host; the loop reads a
-move-batch's finished count and overflow flag ``PIPELINE_DEPTH`` batches
-later.
+An early buffer fill with softened exploration, then per training step
+self-play, the learner's updates (the samples or the epochs method), a
+journal record and, every ``save_frequency`` steps, a checkpoint and the
+plots (``utils/plots.py``), which are drawn again at the end of a run.
+Self-play, replay and SGD all work on tensors on the env's device; the
+host loop sequences them and does the IO.  On the card each self-play move
+is a replay of a CUDA graph of the move (``selfplay.capture_selfplay_step``,
+captured at first use, once per run and step function), which reads
+nothing on the host; the loop reads a move-batch's finished count and
+overflow flag ``PIPELINE_DEPTH`` batches later.
+
+Running modes: ``sequential`` plays until the step's games finish;
+``asynchronous`` plays move-batches, round-robin over the game types and
+always at least one, until ``update_delay`` seconds of wall clock have
+passed since the step began.  A list of envs trains one network on several
+game types that share observation and action shapes, each with its own
+self-play batch, graph and ``pred_iterations`` / ``train_iterations``
+entry; each update draws one sub-batch per type.
+
+Journaled every ``plot_frequency`` steps: the value head's output on a
+probe ``state_set`` (``value_probe/{i}``, ``evaluation/state_sets.py``)
+and, under ``plot_weights``, ``weights/abs_max``, ``abs_min`` and
+``abs_mean`` over the network's parameters.
 
 In-loop evaluation (``Testing``): every ``policy_test_frequency`` /
 ``mcts_test_frequency`` steps, and at step 0 under ``early_testing``, the
@@ -23,10 +36,19 @@ parameters, and is journaled under its launch step when it is harvested;
 pending jobs are joined before a CUDA graph is captured, since a capture
 admits no other thread's launches.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-option: the asynchronous running mode, state-set value probes, loss and
-weight plots, more than one game type, a mesh, ``NUZERO_MFU`` and
-``NUZERO_TRACE_DIR``, and the partial buffer load by step on resume.
+Environment switches: ``NUZERO_MFU=1`` journals ``train_flops_per_s``
+(3x the FLOPs of one forward at the train batch size, counted once by
+``torch.utils.flop_counter`` on the ``meta`` device, per second of the
+step); ``NUZERO_TRACE_DIR=<dir>`` writes a Chrome trace of step
+``starting_step + 2`` (``torch.profiler``) into ``<dir>``.
+
+Resume: ``load`` restores params, optimizer state and buffer; where the
+checkpoint holds no buffer and ``load_buffer`` is on, the newest saved
+buffer truncated to the journal's ``buffer_seq`` at the restored step
+(``load_buffer_at_step``); where there is none, it warns and goes on with
+the empty buffer.
+
+Not ported yet, and refused with ``NotImplementedError``: a mesh.
 """
 
 from __future__ import annotations
@@ -37,10 +59,12 @@ import copy
 import dataclasses
 import os
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from nuzero_tpu_torch.config.schemas import TrainingConfig
 from nuzero_tpu_torch.evaluation.agents import (
@@ -54,9 +78,10 @@ from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, TrainState
 from nuzero_tpu_torch.training.selfplay import (
     capture_selfplay_step, init_selfplay, make_selfplay_step, play_in_place,
 )
-from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from nuzero_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from nuzero_tpu_torch.utils.metrics import MetricsJournal, PrintBar
 from nuzero_tpu_torch.utils.packing import make_packer
+from nuzero_tpu_torch.utils.plots import plot_training_run
 from nuzero_tpu_torch.utils.profiling import PhaseTimers
 
 
@@ -83,20 +108,9 @@ def learner_config_from_training(cfg: TrainingConfig, num_game_types: int = 1) -
     )
 
 
-def unported_options(cfg: TrainingConfig, envs=1, state_set=None, mesh=None) -> list:
-    """The options of this configuration that the port does not run yet."""
-    p = cfg.plotting
-    named = {
-        "running_mode 'asynchronous'": cfg.running.running_mode == "asynchronous",
-        "Plotting.plot_loss": p.plot_loss,
-        "Plotting.plot_weights": p.plot_weights,
-        "state_set (value probes)": state_set is not None,
-        "more than one game type": envs > 1,
-        "mesh": mesh is not None,
-        "NUZERO_MFU": bool(os.environ.get("NUZERO_MFU")),
-        "NUZERO_TRACE_DIR": bool(os.environ.get("NUZERO_TRACE_DIR")),
-    }
-    return [name for name, asked in named.items() if asked]
+def unported_options(mesh=None) -> list:
+    """The options of the JAX coordinator that the port does not run yet."""
+    return ["mesh"] if mesh is not None else []
 
 
 class AlphaZero:
@@ -115,23 +129,35 @@ class AlphaZero:
         search_params: SearchParams,
         run_dir: Optional[str] = None,
         test_hook: Optional[Callable] = None,
-        state_set=None,
+        state_set: Optional[torch.Tensor] = None,
         mesh=None,
     ):
-        """``test_hook(state, step) -> dict`` replaces the in-loop tests:
-        called every ``policy_test_frequency`` steps, its metrics go into
-        the step's record."""
-        envs = list(env) if isinstance(env, (list, tuple)) else [env]
-        missing = unported_options(train_config, len(envs), state_set, mesh)
+        """``env`` is one env or a list of envs, one per game type, which
+        must share observation and action shapes (one network serves every
+        type).  ``test_hook(state, step) -> dict`` replaces the in-loop
+        tests: called every ``policy_test_frequency`` steps, its metrics go
+        into the step's record.  ``state_set`` holds probe observations
+        ``[N, *observation_shape]`` whose values are journaled every
+        ``plot_frequency`` steps."""
+        missing = unported_options(mesh)
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch pipeline yet: " + ", ".join(missing))
-        if train_config.running.num_games_per_type_per_step < 1:
+        envs = list(env) if isinstance(env, (list, tuple)) else [env]
+        base = envs[0]
+        for e in envs[1:]:
+            if (tuple(e.observation_shape) != tuple(base.observation_shape)
+                    or e.num_actions != base.num_actions):
+                raise ValueError("all game types must share observation and action shapes "
+                                 "(one network serves every type)")
+        running = train_config.running
+        if running.running_mode == "sequential" and running.num_games_per_type_per_step < 1:
             raise ValueError(
                 "sequential running_mode requires num_games_per_type_per_step >= 1")
-        env = envs[0]
-        self.env = env
-        self.device = env.device
+        self.envs = envs
+        # The env of the in-loop tests and the probes (ref test_game_index).
+        self.env = envs[min(train_config.testing.test_game_index, len(envs) - 1)]
+        self.device = base.device
         self.manager = manager
         self.cfg = train_config
         self.search_params = search_params
@@ -142,31 +168,50 @@ class AlphaZero:
             print("note: Cache.cache_choice is obsolete on this runtime (self-play "
                   "leaf inference is batched on the device); ignoring")
 
-        self.learner = Learner(manager, learner_config_from_training(train_config))
-        pred_iters = train_config.recurrent.pred_iterations[0]
+        self.learner = Learner(manager, learner_config_from_training(train_config, len(envs)))
+        pi = train_config.recurrent.pred_iterations
 
-        def net(variables, obs):
-            p, v, _ = manager.apply(variables, obs, iters_to_do=pred_iters)
-            return p, v
+        def make_net(pred_iters: int):
+            def net(variables, obs):
+                p, v, _ = manager.apply(variables, obs, iters_to_do=pred_iters)
+                return p, v
+
+            return net
 
         # Early-fill exploration overrides (ref AlphaZero.py:385-387,503-517).
         early_params = dataclasses.replace(
             search_params,
-            number_of_softmax_moves=train_config.running.early_softmax_moves,
-            epsilon_softmax_exploration=train_config.running.early_softmax_exploration,
-            epsilon_random_exploration=train_config.running.early_random_exploration,
+            number_of_softmax_moves=running.early_softmax_moves,
+            epsilon_softmax_exploration=running.early_softmax_exploration,
+            epsilon_random_exploration=running.early_random_exploration,
         )
-        self.sp_step = make_selfplay_step(env, net, search_params, training=True, game_type=0)
-        self.sp_step_early = make_selfplay_step(env, net, early_params, training=True,
-                                                game_type=0)
-        _, self._unpack, self.state_dim = make_packer(
-            env.init(1, generator=torch.Generator(env.device)))
+        # One self-play step per game type, each at its own pred_iterations.
+        self.sp_steps, self.sp_steps_early = [], []
+        for t, e in enumerate(envs):
+            net_t = make_net(pi[t] if t < len(pi) else pi[0])
+            self.sp_steps.append(
+                make_selfplay_step(e, net_t, search_params, training=True, game_type=t))
+            self.sp_steps_early.append(
+                make_selfplay_step(e, net_t, early_params, training=True, game_type=t))
+        self._net = make_net(pi[min(train_config.testing.test_game_index, len(pi) - 1)])
+        # The buffer stores packed env states; each type's sampler rebuilds
+        # observations with its own env (rows are padded to the widest type).
+        self._unpackers = []
+        for e in envs:
+            _, unpack, dim = make_packer(e.init(1, generator=torch.Generator(e.device)))
+            self._unpackers.append((unpack, dim))
+        self.state_dim = max(dim for _, dim in self._unpackers)
         self.trajectory_length = (
-            train_config.running.max_trajectory_length or env.max_game_length)
+            running.max_trajectory_length or max(e.max_game_length for e in envs))
         self.buffer = replay_lib.create_buffer(
             train_config.learning.replay_window_size, self.trajectory_length,
-            self.state_dim, env.num_actions, device=self.device,
+            self.state_dim, base.num_actions, device=self.device,
         )
+        self.state_set = (None if state_set is None else
+                          torch.as_tensor(state_set, dtype=torch.float32, device=self.device))
+        # The leaves of the weight stats: the network's parameters, as the
+        # JAX learner's params (no buffer, such as BatchNorm's statistics).
+        self._weight_keys = [name for name, _ in manager.module.named_parameters()]
         self._sp_batches = 0  # move-batches launched this step (throughput)
         # The CUDA graph of each self-play step (card only), and the memory
         # pool they share: they never run at once.
@@ -183,7 +228,7 @@ class AlphaZero:
             # functional_call swaps a module's tensors while it runs, so the
             # worker thread's agents get a module of their own.
             test_mgr = NetworkManager(copy.deepcopy(manager.module), manager.observation_shape)
-        self.test_manager = TestManager(env)
+        self.test_manager = TestManager(self.env)
         self._random_agent = RandomAgent()
         self._policy_agent = PolicyAgent(test_mgr, None, test_iters)
         self._mcts_agent = MctsAgent(test_mgr, None, search_params, test_iters)
@@ -202,20 +247,23 @@ class AlphaZero:
 
     # -- phases --------------------------------------------------------------
 
-    def _observe(self, states: torch.Tensor) -> torch.Tensor:
+    def _observe(self, states: torch.Tensor, game_type: int = 0) -> torch.Tensor:
         """Observations rebuilt from packed states (``env.observe`` over the
-        unpacked batch)."""
-        return self.env.observe(self._unpack(states[:, :self.state_dim]))
+        unpacked batch) by the env of ``game_type``."""
+        unpack, dim = self._unpackers[game_type]
+        return self.envs[game_type].observe(unpack(states[:, :dim]))
 
-    def _sample_obs(self, rng, batch_size, *, late_heavy, with_replacement):
+    def _sample_obs(self, rng, batch_size, *, late_heavy, with_replacement, game_type=None):
+        """A batch drawn from the buffer (from ``game_type``'s games only,
+        where given) with its observations."""
         enc, pol, val, gt = replay_lib.sample(
             self.buffer, rng, batch_size, late_heavy=late_heavy,
-            with_replacement=with_replacement)
-        return self._observe(enc), pol, val, gt
+            with_replacement=with_replacement, game_type=game_type)
+        return self._observe(enc, game_type or 0), pol, val, gt
 
-    def _gather_obs(self, idx):
+    def _gather_obs(self, idx, game_type: int = 0):
         enc, pol, val, gt = replay_lib.gather(self.buffer, idx)
-        return self._observe(enc), pol, val, gt
+        return self._observe(enc, game_type), pol, val, gt
 
     def _mover(self, step_fn, sp, params):
         """A function that plays one move of every game of ``sp`` in place ->
@@ -237,6 +285,26 @@ class AlphaZero:
         graph.load_params(params)
         return lambda: (*graph.replay(), graph.overflow)
 
+    def _launch(self, move, pending: collections.deque):
+        """Play one move-batch, add its finished games to the buffer and
+        queue its (finished count, overflow flag) -> the batch's stats."""
+        finished, stats, overflow = move()
+        self._sp_batches += 1
+        self.buffer = replay_lib.add_games(self.buffer, finished)
+        pending.append(torch.stack([stats["finished"].to(torch.int64),
+                                    overflow.to(torch.int64)]))
+        return stats
+
+    @staticmethod
+    def _settle(counts) -> int:
+        """The finished count of a queued move-batch; raises where one of
+        its bounded loops overflowed."""
+        n, overflow = counts.tolist()
+        if overflow:
+            raise OverflowError("self-play: a loop bounded for the move's CUDA graph "
+                                "ran past its bound")
+        return n
+
     def _selfplay_until(self, state, sp, step_fn, target_games: int, progress=None):
         """Run lockstep move-batches of ``sp`` (in place) until
         ``target_games`` finish -> (games, stats of the last batch).  The
@@ -251,57 +319,146 @@ class AlphaZero:
 
         def settle(counts):
             nonlocal done
-            n, overflow = counts.tolist()
-            if overflow:
-                raise OverflowError("self-play: a loop bounded for the move's CUDA graph "
-                                    "ran past its bound")
+            n = self._settle(counts)
             done += n
             if progress is not None and n:
                 progress(n)
 
         while done < target_games:
-            finished, stats, overflow = move()
-            self._sp_batches += 1
-            self.buffer = replay_lib.add_games(self.buffer, finished)
-            pending.append(torch.stack([stats["finished"].to(torch.int64),
-                                        overflow.to(torch.int64)]))
+            stats = self._launch(move, pending)
             if len(pending) > self.PIPELINE_DEPTH:
                 settle(pending.popleft())
         for counts in pending:
             settle(counts)
         return done, stats
 
+    def _selfplay_for(self, state, sps, t0: float):
+        """The asynchronous running mode's self-play (ref wall-clock-decoupled
+        mode, AlphaZero.py:389-404,468-469,1259-1266): rounds of one
+        move-batch per game type, always at least one round, until
+        ``update_delay`` seconds have passed since ``t0`` -> (games, stats of
+        the last batch).  The host reads a batch's count PIPELINE_DEPTH
+        batches late, which paces it to the device."""
+        movers = [self._mover(self.sp_steps[t], sp, state.params) for t, sp in enumerate(sps)]
+        games = 0
+        stats = {}
+        pending: collections.deque = collections.deque()
+        while True:
+            for move in movers:
+                stats = self._launch(move, pending)
+            while len(pending) > self.PIPELINE_DEPTH:
+                games += self._settle(pending.popleft())
+            if time.time() - t0 >= self.cfg.running.update_delay:
+                break
+        for counts in pending:
+            games += self._settle(counts)
+        return games, stats
+
+    def _update(self, state: TrainState, batches):
+        """One SGD update: a single batch for one game type, or one
+        sub-batch per type forwarded at its own recurrent iteration count."""
+        if len(batches) == 1:
+            return self.learner.train_step(state, batches[0], self._host_rng)
+        return self.learner.train_step_multi(state, batches, self._host_rng)
+
+    def _sub_sizes(self, batch_size: int) -> list:
+        """Per-type sub-batch sizes summing to ``batch_size``."""
+        T = len(self.envs)
+        return [batch_size // T + (1 if t < batch_size % T else 0) for t in range(T)]
+
     def _train_once(self, state: TrainState):
         cfg = self.cfg.learning
+        T = len(self.envs)
+        types = [None] if T == 1 else list(range(T))
         metrics = {}
         if cfg.learning_method == "samples":
             for _ in range(cfg.num_samples):
-                batch = self._sample_obs(
-                    self._rng, cfg.batch_size, late_heavy=cfg.late_heavy,
-                    with_replacement=cfg.with_replacement)
-                state, metrics = self.learner.train_step(state, batch, self._host_rng)
+                batches = [
+                    self._sample_obs(self._rng, n, late_heavy=cfg.late_heavy,
+                                     with_replacement=cfg.with_replacement, game_type=gt)
+                    for gt, n in zip(types, self._sub_sizes(cfg.batch_size))]
+                state, metrics = self._update(state, batches)
         elif cfg.learning_method == "epochs":
             # Shuffle and sweep (ref AlphaZero.py:686-737): each epoch permutes
-            # the valid positions once and slices full batches in order; the
-            # n_positions % batch_size remainder is dropped.
-            bs = cfg.epochs_batch_size
-            n_pos = int(self.buffer.num_positions)
-            if bs > n_pos:
+            # each type's valid positions once and slices full batches in
+            # order; the remainder is dropped.
+            sub = self._sub_sizes(cfg.epochs_batch_size)
+            n_pos = ([int(self.buffer.num_positions)] if T == 1 else
+                     [int(torch.where(self.buffer.game_type == t, self.buffer.length, 0).sum())
+                      for t in range(T)])
+            if any(s > n for s, n in zip(sub, n_pos)):
                 raise ValueError("Batch size too large; use early_fill to pre-fill "
                                  "the replay buffer (ref AlphaZero.py:690-693)")
-            n_batches = n_pos // bs
+            n_batches = min(n // s for s, n in zip(sub, n_pos))
             # No per-epoch loss reaches the journal: the JAX loop writes
             # loss/epoch{e} into the last update's metrics, which the next
             # update replaces, and its record copies only loss/type* keys
             # (nuzero_tpu/training/pipeline.py:499-504,815-817).
             for _ in range(cfg.learning_epochs):
-                perm = replay_lib.epoch_permutation(self.buffer, self._rng)
+                perms = [replay_lib.epoch_permutation(self.buffer, self._rng, game_type=gt)
+                         for gt in types]
                 for b in range(n_batches):
-                    batch = self._gather_obs(perm[b * bs:(b + 1) * bs])
-                    state, metrics = self.learner.train_step(state, batch, self._host_rng)
+                    batches = [self._gather_obs(perm[b * s:(b + 1) * s], t)
+                               for t, (perm, s) in enumerate(zip(perms, sub))]
+                    state, metrics = self._update(state, batches)
         else:
             raise ValueError(f"bad learning_method {cfg.learning_method!r}")
         return state, metrics
+
+    # -- probes, weight stats, FLOPs, plots -----------------------------------
+
+    @torch.no_grad()
+    def probe_values(self, params) -> list:
+        """The value head's output on each probe of ``state_set``: one
+        batched forward at the probe env's ``pred_iterations``."""
+        _, v = self._net(params, self.state_set)
+        return v.float().reshape(-1).tolist()
+
+    @torch.no_grad()
+    def weight_stats(self, params) -> tuple:
+        """(max, min, mean) of |w| over every parameter of the network (ref
+        update_weight_data, AlphaZero.py:1164-1173): the mean weights each
+        tensor's mean by its size, as the JAX coordinator does."""
+        leaves = [params[k].detach().float().abs().reshape(-1) for k in self._weight_keys]
+        sizes = torch.tensor([x.numel() for x in leaves], dtype=torch.float32,
+                             device=self.device)
+        stats = torch.stack([
+            torch.stack([x.max() for x in leaves]).max(),
+            torch.stack([x.min() for x in leaves]).min(),
+            (torch.stack([x.mean() for x in leaves]) * sizes).sum() / sizes.sum(),
+        ])
+        return tuple(stats.tolist())
+
+    def train_flops(self, params) -> float:
+        """3x the FLOPs of one forward (forward and backward of an update)
+        at the train batch size per game type, counted once by
+        ``FlopCounterMode`` on the ``meta`` device: the plain hex conv's
+        shapes, no data, no kernel launched.  A hex conv counts
+        2 * M * 7 * Cin * Cout (XLA's cost analysis, which the JAX
+        coordinator reads, counts its dual 3x3 conv instead)."""
+        cfg = self.cfg.learning
+        bs = cfg.batch_size if cfg.learning_method == "samples" else cfg.epochs_batch_size
+        meta = {k: torch.empty_like(v, device="meta") for k, v in params.items()}
+        obs = torch.empty((max(bs // len(self.envs), 1),) + tuple(self.env.observation_shape),
+                          device="meta")
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            self._net(meta, obs)
+        return 3.0 * counter.get_total_flops()
+
+    def render_plots(self) -> list:
+        """Render the training plot set from the journal into
+        ``run_dir/plots`` (ref plot rendering, ``AlphaZero.py:963-1179``)
+        -> the written paths."""
+        if self.run_dir is None:
+            return []
+        records = self.journal.load()
+        if not records:
+            return []
+        return plot_training_run(
+            records, os.path.join(self.run_dir, "plots"),
+            recent_steps=self.cfg.plotting.recent_steps_loss,
+            include_loss=self.cfg.plotting.plot_loss,
+        )
 
     # -- in-loop evaluation ----------------------------------------------------
 
@@ -394,23 +551,28 @@ class AlphaZero:
             starting_step: int = 0) -> TrainState:
         cfg = self.cfg
         dev = self.device
+        T = len(self.envs)
         self._rng = torch.Generator(device=dev).manual_seed(seed)  # replay draws
         self._host_rng = torch.Generator().manual_seed(seed)  # progressive (n, k)
         init_rng = torch.Generator(device=dev).manual_seed(seed + 1)
         state = initial_state or self.learner.init_state(init_rng)
-        sp = init_selfplay(
-            self.env, cfg.running.num_actors,
-            torch.Generator(device=dev).manual_seed(seed + 2),
-            self.trajectory_length, search_params=self.search_params,
-            state_dim=self.state_dim,
-        )
+        sps = [
+            init_selfplay(e, cfg.running.num_actors,
+                          torch.Generator(device=dev).manual_seed(seed + 2 + t),
+                          self.trajectory_length, search_params=self.search_params,
+                          state_dim=self.state_dim)
+            for t, e in enumerate(self.envs)
+        ]
 
         if cfg.running.early_fill_per_type > 0 and starting_step == 0:
             t0 = time.time()
-            bar = PrintBar("early fill", cfg.running.early_fill_per_type)
-            total, _ = self._selfplay_until(
-                state, sp, self.sp_step_early, cfg.running.early_fill_per_type,
-                progress=bar.next)
+            bar = PrintBar("early fill", T * cfg.running.early_fill_per_type)
+            total = 0
+            for t in range(T):
+                n, _ = self._selfplay_until(
+                    state, sps[t], self.sp_steps_early[t], cfg.running.early_fill_per_type,
+                    progress=bar.next)
+                total += n
             bar.finish()
             print(f"early fill: {total} games in {time.time() - t0:.1f}s "
                   f"({int(self.buffer.num_positions)} positions)")
@@ -421,13 +583,34 @@ class AlphaZero:
             if res:
                 self.journal.append({"step": 0, **res})
 
+        sequential = cfg.running.running_mode == "sequential"
         timers = PhaseTimers(dev)
+        train_flops = None
+        if os.environ.get("NUZERO_MFU"):
+            try:
+                train_flops = self.train_flops(state.params)
+            except Exception as exc:  # as in the JAX coordinator: MFU is optional
+                warnings.warn(f"NUZERO_MFU: the FLOP count failed ({exc!r}); "
+                              "train_flops_per_s is not journaled", stacklevel=2)
+        trace_dir = os.environ.get("NUZERO_TRACE_DIR")
+        trace_at = starting_step + 2
         for step in range(starting_step + 1, cfg.running.training_steps + 1):
             t0 = time.time()
             self._sp_batches = 0
+            tracer = self._start_trace() if trace_dir and step == trace_at else None
+            per_type_stats = {}
             with timers.phase("selfplay"):
-                games, sp_stats = self._selfplay_until(
-                    state, sp, self.sp_step, cfg.running.num_games_per_type_per_step)
+                if sequential:
+                    games = 0
+                    for t in range(T):
+                        g, sp_stats = self._selfplay_until(
+                            state, sps[t], self.sp_steps[t],
+                            cfg.running.num_games_per_type_per_step)
+                        games += g
+                        per_type_stats[t] = (g, sp_stats)
+                else:
+                    games, sp_stats = self._selfplay_for(state, sps, t0)
+            updates_before = state.step
             with timers.phase("train"):
                 state, tr_metrics = self._train_once(state)
 
@@ -457,6 +640,16 @@ class AlphaZero:
             for k, v in tr_metrics.items():
                 if k.startswith("loss/type"):
                     record[k] = float(v)
+            if T > 1:
+                # Per-type self-play stats (ref Training/Gamer.py:42-92).
+                for t, (g, st) in per_type_stats.items():
+                    record[f"selfplay/type{t}/games"] = g
+                    for key_in, key_out in (("root_value_mean", "root_value"),
+                                            ("tree_nodes_mean", "tree_nodes"),
+                                            ("children_per_node_mean", "children_per_node"),
+                                            ("exploration_bias_mean", "exploration_bias")):
+                        if key_in in st:
+                            record[f"selfplay/type{t}/{key_out}"] = float(st[key_in])
 
             with timers.phase("eval"):
                 if self.test_hook is not None:
@@ -466,8 +659,25 @@ class AlphaZero:
                 else:
                     record.update(self._run_inloop_tests(state, step))
                 self._harvest_async_tests()
+
+            if step % cfg.plotting.plot_frequency == 0:
+                if self.state_set is not None:
+                    record.update({f"value_probe/{i}": v
+                                   for i, v in enumerate(self.probe_values(state.params))})
+                if cfg.plotting.plot_weights:
+                    w_max, w_min, w_mean = self.weight_stats(state.params)
+                    record.update({"weights/abs_max": w_max, "weights/abs_min": w_min,
+                                   "weights/abs_mean": w_mean})
+            if train_flops:
+                # Model FLOP/s over this step's updates (forward and backward
+                # at the train batch size; self-play excluded).
+                record["train_flops_per_s"] = round(
+                    train_flops * max(state.step - updates_before, 0)
+                    / max(time.time() - t0, 1e-9))
             record.update(timers.metrics())
             self.journal.append(record)
+            if tracer is not None:
+                self._stop_trace(tracer, trace_dir, step)
 
             if self.run_dir and step % cfg.saving.save_frequency == 0:
                 with timers.phase("checkpoint"):
@@ -476,34 +686,89 @@ class AlphaZero:
                     if cfg.saving.save_buffer:
                         tree["buffer"] = replay_lib.to_tree(self.buffer)
                     save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
+                # The plots ride the checkpoint cadence, off the hot loop.
+                self.render_plots()
         self._harvest_async_tests(block=True)
+        if self.run_dir:
+            self.render_plots()
         return state
 
+    def _start_trace(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        tracer = torch.profiler.profile(activities=activities)
+        tracer.start()
+        return tracer
+
+    @staticmethod
+    def _stop_trace(tracer, trace_dir: str, step: int) -> None:
+        tracer.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        tracer.export_chrome_trace(os.path.join(trace_dir, f"step_{step:08d}.trace.json"))
+
     # -- resume --------------------------------------------------------------
+
+    def _restore(self, step, with_buffer: bool):
+        """The checkpoint tree at ``step`` ('auto' = latest), its shapes held
+        to this coordinator's (the buffer's only ``with_buffer``) ->
+        (tree, step)."""
+        template = self.learner.init_state(torch.Generator(device=self.device).manual_seed(0))
+        target = {"params": template.params, "opt_state": template.opt_state, "step": 0}
+        if with_buffer:
+            target["buffer"] = replay_lib.to_tree(self.buffer)
+        return restore_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, target,
+                                  device=self.device)
+
+    def load_buffer_at_step(self, step: int) -> bool:
+        """Restore the replay buffer to its state at training step ``step``
+        from the NEWEST buffer-bearing checkpoint, dropping games inserted
+        after that step (ref ``ReplayBuffer.py:80-104`` partial load by
+        ``step_to_size_map``; the insertion count per step lives in the
+        journal's ``buffer_seq``).  Returns True on success: False where
+        there is no checkpoint, no journal record of ``step``, or no buffer
+        of this shape in the newest checkpoint."""
+        assert self.run_dir is not None
+        newest = latest_step(os.path.join(self.run_dir, "checkpoints"))
+        if newest is None:
+            return False
+        seq_at_step = next((r["buffer_seq"] for r in self.journal.load()
+                            if r.get("step") == step and "buffer_seq" in r), None)
+        if seq_at_step is None:
+            return False
+        try:
+            tree, _ = self._restore(newest, with_buffer=True)
+        except ValueError:  # the saved buffer's shape is not this buffer's
+            return False
+        if tree.get("buffer") is None:
+            return False
+        self.buffer = replay_lib.truncate_to_seq(replay_lib.ReplayBuffer(**tree["buffer"]),
+                                                 seq_at_step)
+        return True
 
     def load(self, step: int | str = "auto") -> tuple[TrainState, int]:
         """Restore params, optimizer state and buffer from this run's
         checkpoints (ref ``AlphaZero.py:110-146`` + ``ReplayBuffer.py:80-104``)
-        -> (state, step)."""
+        -> (state, step).  Where ``load_buffer`` is on and the checkpoint
+        holds no buffer, the buffer comes from ``load_buffer_at_step``; where
+        that finds none, this warns and the run goes on with the empty
+        buffer (the JAX coordinator reaches the same state and says
+        nothing)."""
         assert self.run_dir is not None
         ckpt = self.cfg.checkpoint
-        template = self.learner.init_state(torch.Generator(device=self.device).manual_seed(0))
-        target = {"params": template.params, "opt_state": template.opt_state, "step": 0}
         # The buffer is restored, and its shapes checked, only when it is
         # both saved and asked for (nuzero_tpu/training/pipeline.py:974-975):
         # a resume without it may change the window, the trajectory length
         # or the action count.
         with_buffer = self.cfg.saving.save_buffer and ckpt.load_buffer
-        if with_buffer:
-            target["buffer"] = replay_lib.to_tree(self.buffer)
-        tree, step = restore_checkpoint(
-            os.path.join(self.run_dir, "checkpoints"), step, target, device=self.device)
+        tree, step = self._restore(step, with_buffer)
         if with_buffer and "buffer" in tree:
             self.buffer = replay_lib.ReplayBuffer(**tree["buffer"])
-        elif ckpt.load_buffer:
-            raise NotImplementedError(
-                "not ported to the PyTorch pipeline yet: load_buffer from a checkpoint "
-                "without a buffer (the partial buffer load by step, load_buffer_at_step)")
+        elif ckpt.load_buffer and not self.load_buffer_at_step(step):
+            warnings.warn(
+                f"load_buffer: no replay buffer to restore at step {step} (the checkpoint "
+                "holds none, and no newer one holds a buffer to truncate to it); going on "
+                "with an empty buffer", stacklevel=2)
         opt_state = (tree["opt_state"] if ckpt.keep_optimizer
                      else self.learner.init_opt_state(tree["params"]))
         # keep_scheduler: resume or restart the LR schedule independently of

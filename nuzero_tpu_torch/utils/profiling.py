@@ -20,7 +20,9 @@ class PhaseTimers:
     >>> with timers.phase("selfplay"): ...
     >>> timers.metrics()  # {"time/selfplay": ...}"""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
+        """``device``: where the timed work runs; on a CUDA device each
+        phase boundary synchronizes its current stream."""
         self.device = torch.device(device)
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}

@@ -392,18 +392,17 @@ def test_testing_option_runs(name, tmp_path):
 
 @pytest.mark.parametrize("name", ["ttt_default.yaml", "ttt_long.yaml"])
 def test_shipped_ttt_configs_are_accepted(name):
-    """Both shipped TTT configs, with plot_loss off, leave nothing unported:
-    the coordinator builds with their in-loop tests (early, policy every
-    25, MCTS every 50, asynchronous)."""
+    """Both shipped TTT configs, as shipped (plot_loss on), leave nothing
+    unported: the coordinator builds with their in-loop tests (early, policy
+    every 25, MCTS every 50, asynchronous)."""
     from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
     from nuzero_tpu_torch.training.pipeline import AlphaZero, unported_options
 
     root = os.path.dirname(SCENARIOS)
     cfg = load_training_config(os.path.join(root, "training", name))
     assert cfg.testing.early_testing and cfg.testing.asynchronous_testing
-    assert unported_options(cfg) == ["Plotting.plot_loss"]
-    cfg = dataclasses.replace(cfg, plotting=dataclasses.replace(cfg.plotting, plot_loss=False))
-    assert unported_options(cfg) == []
+    assert cfg.plotting.plot_loss
+    assert unported_options() == []
     env = TicTacToe(device="cpu")
     az = AlphaZero(env, _mlp_manager(env), cfg,
                    load_search_config(os.path.join(root, "search", "ttt_search.yaml")))

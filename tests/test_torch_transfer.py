@@ -250,6 +250,7 @@ def test_iteration_sweep_equals_jax_and_the_committed_curve(run, tmp_path):
     got = record["results"] + mid["results"] + late["results"]
     with open(tmp_path / "iteration_sweep.json") as f:
         assert json.load(f) == record
+    assert sorted(os.listdir(tmp_path)) == ["iteration_sweep.json", "iteration_sweep.png"]
     with open(os.path.join(JAX_RUNS, run, "plots", "iteration_sweep.json")) as f:
         committed = json.load(f)
     assert record["checkpoint_step"] == committed["checkpoint_step"]
@@ -328,6 +329,7 @@ def test_size_sweep_writes_run_py_schema(tmp_path):
                                         sizes=(5, 7), iterations=(2,), games=2, device="cpu")
     with open(tmp_path / "size_sweep.json") as f:
         assert json.load(f) == record
+    assert sorted(os.listdir(tmp_path)) == ["size_sweep.json", "size_sweep.png"]
     with open(os.path.join(JAX_RUNS, "scs_solo_rvp_r5", "plots", "size_sweep.json")) as f:
         committed = json.load(f)
     assert record.keys() == committed.keys()
