@@ -157,8 +157,33 @@ The rest of the training pipeline:
    ``NUZERO_TRACE_DIR`` (``PRESET3_TRACE``): ``train_flops_per_s`` > 0 and a
    Chrome trace whose kernels include the f32 forward and dW kernels.
 
-The last two lines are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+The command line:
+
+15. the port's CLI on the card, each mode a subprocess that calls
+   ``nuzero_tpu_torch.run.main`` with the mode's arguments, as ``python -m
+   nuzero_tpu_torch.run`` does, must exit 0 and then writes its launches
+   per kernel to a file (``CLI_DRIVER``): (a) ``--debug 0/1/2`` side by side (a board and the terminal
+   value; the tree dump names the chosen action among the root's
+   children); (b) ``--training-preset 2 --filters 256 --net-dtype
+   bfloat16``, the flagship width, on copies of ``scs_small.yaml`` and
+   ``scs_search.yaml`` cut in depth (``CLI_TRAIN_CUTS``) with an absolute
+   ``--name`` in a temporary directory: the run directory's files, the
+   journal's keys (``JOURNAL_KEYS``), and the bf16 forward and dW kernels'
+   launches equal to what the moves and updates give
+   (``expected_cli_launches``); (c) the same with ``load_checkpoint`` on,
+   which must resume at the saved step for one more; (d) its last
+   checkpoint through ``build_from_meta`` (f32) on the card and the CPU
+   within 1e-4, and as the 256f bf16 net within 1e-2, on 8 positions; (e) side by side:
+   testing preset 1, testing preset 2 on ``scs_solo_r3`` (from its export;
+   its curve must equal phase 13's), ``--play mcts --cache keyless`` with
+   moves 0-8 on stdin (a whole game, the hit ratio printed),
+   ``--interactive`` with "5" (quit), and (f) the wizard's new-training
+   flow, TTT + MLP cut to one step (``WIZARD_TRAIN``).  ``--analyse`` and
+   ``--view`` open the pygame viewer, which the card machine lacks; they
+   are held headless on a CPU host (``tests/test_torch_viewer.py``).
+
+The last two lines are a JSON summary of the kernels (with each kernel's
+launches in phase 15, ``cli``) and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -168,6 +193,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1442,7 +1468,8 @@ class CheckedSteps:
 
 def transfer_check(card):
     """Phase 13: the committed runs on the card; returns the f32 forward
-    kernel's launches over the phase's sweeps."""
+    kernel's launches over the phase's sweeps and each iteration sweep's
+    record by run."""
     import torch
 
     from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta
@@ -1550,8 +1577,10 @@ def transfer_check(card):
         return [round(c) for c in counts]
 
     scenario = sweeps.load_scenario(sweeps.SCENARIO, seed=42)
+    curves = {}
     for run in ITERATION_RUNS:
         record, seconds = sweep(sweeps.iteration_sweep, run, "iteration sweep")
+        curves[run] = record
         # The port's plain path on the CPU, 2 games a point: every game of a
         # point is the same game (an argmax policy, seat 0 never moves).
         cpu, _ = sweeps.iteration_sweep(run, games=2, device="cpu")
@@ -1623,7 +1652,7 @@ def transfer_check(card):
     rvp_selfplay_leg(card)
     log(f"phase 13: {launches} hexconv_f32_kernel launches over the sweeps, wall time "
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
-    return launches
+    return launches, curves
 
 
 def rvp_selfplay_leg(card):
@@ -2107,6 +2136,309 @@ def preset3_run(card):
     return counts
 
 
+# Phase 15: the port's CLI (``python -m nuzero_tpu_torch.run``) as a user
+# runs it, each mode a subprocess on the card.  The flagship training preset
+# is cut in depth only: steps, the early fill, simulations and the
+# checkpoint cadence.
+CLI_TRAIN_CUTS = {"training_steps": 2, "early_fill_per_type": 16, "save_frequency": 1,
+                  "num_simulations": 30}
+CLI_FLAGSHIP = ["--training-preset", "2", "--filters", "256", "--net-dtype", "bfloat16"]
+CLI_SWEEP_RUN = "scs_solo_r3"
+# The wizard: 1 = new training, TTT, MLP, a run name (an absolute path), then
+# 1 step, 64 actors, 8 games a step, early fill 8, window 256, batch 32,
+# 1 sample, SGD, the default rate, 10 simulations, the defaults, sequential.
+WIZARD_TRAIN = "1\n0\n0\n{name}\n1\n64\n8\n8\n256\n32\n1\n0\n\n10\n\n\n\n0\n"
+# The keys of every journal record of a training step (phase 14's run).
+JOURNAL_KEYS = ("step", "games", "buffer_games", "buffer_positions", "buffer_seq", "updates",
+                "loss/combined", "loss/policy", "loss/value", "selfplay/root_value",
+                "selfplay/tree_full_frac", "selfplay/children_per_node", "step_time_s",
+                "time/selfplay", "time/train", "time/eval")
+CLI_TIMEOUT = 600
+
+
+# Runs one CLI invocation as ``python -m nuzero_tpu_torch.run ARGS`` does
+# (``run.main(ARGS)``), then writes the process's hex-conv kernel launches
+# to the file named first; the CLI itself prints no counts.
+CLI_DRIVER = """import json, sys
+from nuzero_tpu_torch import run
+from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+run.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump(dict(hexconv_kernel.launch_count), f)
+"""
+
+
+def cli_start(args, stdin=None):
+    """Start the port's CLI with ARGS on the card (the default device) from
+    the repository's root, through CLI_DRIVER."""
+    t0 = time.perf_counter()
+    fd, counts = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    proc = subprocess.Popen([sys.executable, "-c", CLI_DRIVER, counts, *args], cwd=REPO,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, args, stdin, t0, counts
+
+
+def cli_finish(started):
+    """Wait for a started CLI process -> (stdout, launches per kernel, its
+    seconds from start to exit); a non-zero exit, a time-out or no written
+    launch counts fails."""
+    proc, args, stdin, t0, path = started
+    try:
+        try:
+            out, err = proc.communicate(stdin, timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"the CLI {' '.join(args)} ran past {CLI_TIMEOUT} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI {' '.join(args)} exited {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        with open(path) as f:
+            text = f.read()
+        if not text:
+            raise AssertionError(f"the CLI {' '.join(args)} wrote no launch counts")
+        return out, json.loads(text), time.perf_counter() - t0
+    finally:
+        os.remove(path)
+
+
+def cli(args, stdin=None):
+    return cli_finish(cli_start(args, stdin))
+
+
+def cli_finish_all(started):
+    """cli_finish for each started process in turn; where one fails, the
+    others are killed before the failure goes on."""
+    try:
+        return [cli_finish(p) for p in started]
+    except BaseException:
+        for proc, *_, path in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+            if os.path.exists(path):
+                os.remove(path)
+        raise
+
+
+def cli_configs(tmp, **cuts):
+    """Copies of ``scs_small.yaml`` (cut by CLI_TRAIN_CUTS, then ``cuts``:
+    RunningConfig, SavingConfig or Initialization keys) and ``scs_search.yaml``
+    (CLI_TRAIN_CUTS' simulations) in ``tmp`` -> their absolute paths."""
+    from nuzero_tpu_torch.config.yaml_io import load_yaml, save_yaml
+
+    cuts = {**CLI_TRAIN_CUTS, **cuts}
+    train = load_yaml(os.path.join(REPO, PRESET3_TRAIN))
+    for key, value in cuts.items():
+        for section in ("Running", "Saving", "Initialization"):
+            if key in train[section]:
+                train[section][key] = value
+    search = load_yaml(os.path.join(REPO, PRESET3_SEARCH))
+    search["Simulation"]["mcts_simulations"] = cuts["num_simulations"]
+    paths = os.path.join(tmp, "train.yaml"), os.path.join(tmp, "search.yaml")
+    save_yaml(train, paths[0])
+    save_yaml(search, paths[1])
+    return paths
+
+
+def expected_cli_launches(cfg, sims, captures, updates):
+    """The hex-conv kernel launches of a training invocation: per captured
+    step function two eager moves (the capture's warm-up and the captured
+    move; a replay launches through no wrapper) of ``sims + 1`` network
+    evaluations at ``pred_iterations``, and per update the forward, dX and
+    dW of ``launches_per_progressive_update`` at the draws the coordinator
+    makes (``progressive_draws`` from a CPU generator seeded 0 at each
+    ``run``) -> (forward kernel, dW kernel)."""
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda.measure import (
+        launches_per_progressive_update, launches_per_update,
+    )
+    from nuzero_tpu_torch.training.learner import progressive_draws
+
+    pred, m = cfg.recurrent.pred_iterations[0], cfg.recurrent.train_iterations[0]
+    forward = captures * 2 * (sims + 1) * (7 + 5 * pred)
+    dw = 0
+    rng = torch.Generator().manual_seed(0)
+    for _ in range(updates):
+        per = (launches_per_progressive_update(m, *progressive_draws(rng, m))
+               if cfg.recurrent.alpha else launches_per_update(m))
+        forward += per["forward"] + per["dx"]
+        dw += per["dw"]
+    return forward, dw
+
+
+def cli_phase(card, iteration_curve):
+    """Phase 15: every mode of the port's CLI on the card, as subprocesses;
+    returns the launches per kernel of each invocation."""
+    import torch
+
+    from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta
+    from nuzero_tpu_torch.config.schemas import load_training_config
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import DW_KERNELS, KERNELS
+    from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    bf16, dw16 = KERNELS[torch.bfloat16], DW_KERNELS[torch.bfloat16]
+    launches = {}
+
+    # (a) the debug presets, side by side.
+    started = [cli_start(["--debug", str(i)]) for i in range(3)]
+    outs = cli_finish_all(started)
+    for i, (out, counts, secs) in enumerate(outs):
+        launches[f"debug {i}"] = counts
+        log(f"(a) --debug {i}: {secs:.1f} s, last lines: "
+            + " | ".join(out.rstrip("\n").split("\n")[-2:]))
+    if "---|---|---" not in outs[0][0] or "terminal value:" not in outs[0][0]:
+        raise AssertionError("--debug 0 printed no board or terminal value")
+    if "turn " not in outs[1][0] or "moves: " not in outs[1][0]:
+        raise AssertionError("--debug 1 printed no board or terminal value")
+    dump = outs[2][0]
+    chosen = int(dump.split("chosen action: ")[1].split(",")[0])
+    if not dump.startswith("tree: ") or f"\n  a={chosen} p=" not in dump:
+        raise AssertionError(f"--debug 2's dump does not name the chosen action {chosen}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "flagship")
+        # (b) training preset 2 at the flagship width, cut in depth.
+        train, search = cli_configs(tmp)
+        log("(b) --training-preset 2 --filters 256 --net-dtype bfloat16 on copies of "
+            f"{PRESET3_TRAIN} and {PRESET3_SEARCH} cut to "
+            + ", ".join(f"{k} {v}" for k, v in CLI_TRAIN_CUTS.items())
+            + f"; --name {run_dir}")
+        cfg = load_training_config(train)
+        out, counts, secs = cli([*CLI_FLAGSHIP, "--train-config", train,
+                                 "--search-config", search, "--name", run_dir])
+        launches["training preset 2"] = counts
+        steps, per_step = cfg.running.training_steps, cfg.learning.num_samples
+        want = expected_cli_launches(cfg, CLI_TRAIN_CUTS["num_simulations"], 2, steps * per_step)
+        if (counts[bf16], counts[dw16]) != want or counts[KERNELS[torch.float32]]:
+            raise AssertionError(f"training preset 2 launched {counts}, expected {want} of "
+                                 f"{bf16} and {dw16}")
+        names = sorted(os.listdir(run_dir))
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+        for name in ("train_config_copy.yaml", "search_config_copy.yaml", "run_meta.yaml",
+                     "journal.jsonl", "checkpoints"):
+            if name not in names:
+                raise AssertionError(f"the run directory lacks {name}: {names}")
+        if ckpts != ["FORMAT", "step_00000001.pt", "step_00000002.pt"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        with open(os.path.join(run_dir, "journal.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        missing = [k for r in records for k in JOURNAL_KEYS if k not in r]
+        if [r["step"] for r in records] != [1, 2] or missing:
+            raise AssertionError(f"journal steps {[r['step'] for r in records]}, "
+                                 f"missing keys {missing}")
+        for r in records:
+            log(f"(b) step {r['step']}: {r['games']} games, loss {r['loss/combined']:.4f}, "
+                f"self-play {r['time/selfplay']:.2f} s, train {r['time/train']:.3f} s  [{card}]")
+        log(f"(b) training preset 2: {secs:.1f} s; launches {counts} = {want[0]} forward "
+            f"(2 captures x 2 eager moves x 31 evaluations x 27 convs, then per update 27 + "
+            f"26 dX and the progressive loss's second forward at its draws) and {want[1]} dW "
+            f"over {steps * per_step} updates  [{card}]")
+
+        # (c) the resume: one more step from the saved one.
+        train, search = cli_configs(tmp, training_steps=steps + 1, load_checkpoint=True)
+        out, counts, secs = cli([*CLI_FLAGSHIP, "--train-config", train,
+                                 "--search-config", search, "--name", run_dir])
+        launches["training preset 2, resumed"] = counts
+        resumed = f"resuming from step {steps} ({steps * per_step} updates)"
+        if resumed not in out:
+            raise AssertionError(f"the resume did not start at step {steps}: {out[-2000:]}")
+        want = expected_cli_launches(cfg, CLI_TRAIN_CUTS["num_simulations"], 1, per_step)
+        if (counts[bf16], counts[dw16]) != want:
+            raise AssertionError(f"the resume launched {counts}, expected {want}")
+        with open(os.path.join(run_dir, "journal.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if [r["step"] for r in records] != [1, 2, 3] or records[-1]["updates"] != 3 * per_step:
+            raise AssertionError(f"resumed journal {[(r['step'], r['updates']) for r in records]}")
+        log(f"(c) the resume: {resumed}, one step to {3 * per_step} updates in {secs:.1f} s; "
+            f"launches {counts} = {want} (one capture, no early fill)  [{card}]")
+
+        # (d) the written checkpoint, card against CPU, 8 positions.
+        meta = load_run_meta(run_dir)
+        tree, step = restore_checkpoint(os.path.join(run_dir, "checkpoints"), "auto",
+                                        device="cuda")
+        if step != 3 or tree["step"] != 3 * per_step:
+            raise AssertionError(f"the last checkpoint is step {step}, {tree['step']} updates")
+        env, mgr = build_from_meta(meta, REPO, device="cuda")
+        _, cpu_mgr = build_from_meta(meta, REPO, device="cpu")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        obs = env.observe(random_positions(env, 8, gen))
+        # f32 at network_check's f32 tolerance; bf16 at the bf16 one of
+        # tests/test_torch_networks.py.
+        compare_cpu("(d) checkpoint step 3, build_from_meta (f32)", mgr, cpu_mgr,
+                    tree["params"], obs, 1e-4)
+        cpu_env = make_env("cpu")
+        compare_cpu("(d) checkpoint step 3, 256f bf16 (the run's compute dtype)",
+                    make_net(env, 256, torch.bfloat16), make_net(cpu_env, 256, torch.bfloat16),
+                    tree["params"], obs, 1e-2)
+
+    # (e) testing presets 1 and 2, the play mode, the wizard's quit and (f)
+    # its new-training flow (TTT + MLP, one step), side by side.
+    sweep_dir = os.path.join(REPO, "runs", CLI_SWEEP_RUN, "plots_torch")
+    if os.path.exists(sweep_dir):
+        raise AssertionError(f"{sweep_dir} exists before the sweep")
+    with tempfile.TemporaryDirectory() as tmp:
+        wizard_run = os.path.join(tmp, "wizard_run")
+        started = [cli_start(["--testing-preset", "1"]),
+                   cli_start(["--testing-preset", "2", "--name", CLI_SWEEP_RUN]),
+                   cli_start(["--play", "mcts", "--cache", "keyless"],
+                             "".join(f"{i}\n" for i in range(9))),
+                   cli_start(["--interactive"], "5\n"),
+                   cli_start(["--interactive"], WIZARD_TRAIN.format(name=wizard_run))]
+        try:
+            (t1, c1, s1), (t2, c2, s2), (tp, cp, sp), (ti, ci, si), (tw, cw, sw) = (
+                cli_finish_all(started))
+            with open(os.path.join(sweep_dir, "iteration_sweep.json")) as f:
+                curve = json.load(f)
+        finally:
+            shutil.rmtree(sweep_dir, ignore_errors=True)
+        launches.update({"testing preset 1": c1, "testing preset 2": c2, "play": cp,
+                         "interactive quit": ci, "interactive new training": cw})
+        if f"run complete; artifacts in {wizard_run}" not in tw or not os.path.exists(
+                os.path.join(wizard_run, "checkpoints", "step_00000001.pt")):
+            raise AssertionError(f"the wizard's run: {tw[-2000:]}")
+        with open(os.path.join(wizard_run, "journal.jsonl")) as f:
+            wizard_records = [json.loads(line) for line in f]
+    if t1.count(" (P1) vs ") != 2:
+        raise AssertionError(f"testing preset 1 printed {t1[-1000:]}")
+    if curve != iteration_curve:
+        raise AssertionError(f"testing preset 2's curve {curve} differs from phase 13's "
+                             f"{iteration_curve}")
+    if not c2[KERNELS[torch.float32]]:
+        raise AssertionError("testing preset 2 never launched the f32 forward kernel")
+    ratio = [line for line in tp.split("\n") if "keyless cache: hit ratio" in line]
+    if "game over" not in tp or not ratio:
+        raise AssertionError(f"--play printed {tp[-1500:]}")
+    if "What would you like to do?" not in ti:
+        raise AssertionError("--interactive printed no menu")
+    trained = [r for r in wizard_records if "loss/combined" in r]
+    if [r["step"] for r in trained] != [1]:
+        raise AssertionError(f"the wizard's journal {wizard_records}")
+    # Each time runs from the five processes' common start to the reading
+    # of its result.
+    log(f"(e) testing preset 1 within {s1:.1f} s: "
+        + " | ".join(line for line in t1.split("\n") if " (P1) vs " in line))
+    log(f"(e) testing preset 2 --name {CLI_SWEEP_RUN} within {s2:.1f} s: the iteration curve "
+        f"equals phase 13's ({len(curve['results'])} points); launches {c2}  [{card}]")
+    log(f"(e) --play mcts --cache keyless within {sp:.1f} s: "
+        + tp.split("game over: ")[1].split("\n")[0] + f"; {ratio[0]}")
+    log(f"(e) --interactive, quit, within {si:.1f} s")
+    log(f"(f) --interactive new training (TTT, MLP, 1 step, 64 actors, 10 simulations) within "
+        f"{sw:.1f} s: journal steps {[r['step'] for r in wizard_records]} (the in-loop tests' "
+        f"records under their launch steps), loss {trained[0]['loss/combined']:.4f}; launches "
+        f"{cw}  [{card}]")
+
+    log("(g) --analyse and --view are not driven here: they open the pygame viewer, and the "
+        "card machine has no pygame; tests/test_torch_viewer.py holds them headless on a CPU "
+        "host")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2307,7 +2639,7 @@ def main() -> int:
     ttt_training_run(card)
 
     # --- 13. the transfer path: the committed runs, the sweeps, randomize_vp
-    transfer_launches = transfer_check(card)
+    transfer_launches, curves = transfer_check(card)
     names = [k["name"] for k in kernels]
     kernels[names.index(KERNELS[torch.float32])]["transfer"] = {
         "launches": transfer_launches,
@@ -2324,6 +2656,12 @@ def main() -> int:
     preset3_counts = preset3_run(card)
     for kernel in (KERNELS[torch.float32], DW_KERNELS[torch.float32]):
         kernels[names.index(kernel)]["preset3"] = {"launches": preset3_counts[kernel]}
+
+    # --- 15. the CLI, every mode, as subprocesses
+    cli_counts = cli_phase(card, curves[CLI_SWEEP_RUN])
+    for entry in kernels:
+        by_mode = {mode: c[entry["name"]] for mode, c in cli_counts.items() if c[entry["name"]]}
+        entry["cli"] = {"launches": sum(by_mode.values()), "by_mode": by_mode}
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -6,6 +6,7 @@ from nuzero_tpu_torch.evaluation.agents import (
     RandomAgent,
 )
 from nuzero_tpu_torch.evaluation.arena import MatchStats, play_matches
+from nuzero_tpu_torch.evaluation.human import play_vs_agent
 from nuzero_tpu_torch.evaluation.manager import TestManager
 from nuzero_tpu_torch.evaluation.state_sets import (
     STATE_SET_BUILDERS,
@@ -28,6 +29,7 @@ __all__ = [
     "build_state_set",
     "mirrored_state_set",
     "play_matches",
+    "play_vs_agent",
     "r_unbalanced_state_set",
     "solo_state_set",
     "unbalanced_state_set",

@@ -21,8 +21,10 @@ draws what it needs.  In its place a tensor of the draws themselves may be
 handed in (tests give the JAX agents' draws): the Gumbel noise [B, A] of a
 uniform-over-legal pick, or GoalRush's uniform tie-break noise [B, A].
 
-The JAX agents' per-agent host ``Cache`` is not ported (it needs
-``utils/caches.py`` and the native xxhash).
+``Agent.set_cache`` gives an agent a host inference cache
+(``utils/caches.py``) that ``choose_host``, the batch-of-one decision of
+human games and visual tests, consults: it memoizes the chosen action by
+the observation's bytes.  The batched arena path never consults it.
 """
 
 from __future__ import annotations
@@ -58,11 +60,30 @@ def uniform_legal(legal: torch.Tensor, rng) -> torch.Tensor:
 
 class Agent:
     name: str = "agent"
+    # Host inference cache of batch-of-one play (ref the Testing YAML's
+    # per-agent Cache section, TestManager.py:282-295).
+    cache = None
+
+    def set_cache(self, cache) -> None:
+        self.cache = cache
 
     def choose_host(self, env, state, variables, rng, move_count: int = 0) -> int:
-        """One action for a single game: ``state`` is a batch of one."""
+        """One action for a single game (``state`` is a batch of one),
+        memoized through ``self.cache`` when set: the reference caches
+        batch-1 network outputs (``Explorer.py:137-160``); the eval-mode
+        agents here are deterministic per position, so the chosen action is
+        cached, one level up."""
+        obs = None
+        if self.cache is not None:
+            obs = env.observe(state)[0].cpu().numpy()
+            hit = self.cache.get(obs)
+            if hit is not None:
+                return int(hit)
         lengths = torch.full((1,), move_count, dtype=torch.int32, device=env.device)
-        return int(self.policy(env)(variables, state, lengths, rng)[0])
+        action = int(self.policy(env)(variables, state, lengths, rng)[0])
+        if self.cache is not None:
+            self.cache.put((obs, action))
+        return action
 
     def policy(self, env) -> Callable:
         """Memoized batched action chooser for ``env``; the key includes what

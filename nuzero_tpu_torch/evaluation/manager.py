@@ -11,8 +11,8 @@ ref ``Testing/TestManager.py``).
   restoring the port's own checkpoints (``utils/checkpoint.py``).
 - ``run_visual_test``: one game, returning its action history.
 
-Accepts the reference's Testing YAML schema.  An agent's ``Cache`` section
-is refused: the per-agent host cache is not ported.
+Accepts the reference's Testing YAML schema, an agent's ``Cache`` section
+included (a host cache for its batch-of-one decisions, ``Agent.set_cache``).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from nuzero_tpu_torch.evaluation.agents import (
 )
 from nuzero_tpu_torch.evaluation.arena import Arena, MatchStats
 from nuzero_tpu_torch.search.mcts import SearchParams
+from nuzero_tpu_torch.utils.caches import create_cache
 from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
 
 
@@ -73,11 +74,16 @@ class TestManager:
 
     def create_agent_from_config(self, agent_cfg: Dict, manager=None,
                                  game_dir: Optional[str] = None) -> Agent:
+        agent = self._create_agent(agent_cfg, manager, game_dir)
         cache_cfg = agent_cfg.get("Cache")
         if cache_cfg and cache_cfg.get("cache_choice", "disabled") != "disabled":
-            raise NotImplementedError(
-                "not ported to the PyTorch package yet: an agent's Cache section (the "
-                "per-agent host inference cache)")
+            # Serves host-driven play (visual tests, human games); the
+            # batched arena has no batch-of-one inference to cache.
+            agent.set_cache(create_cache(cache_cfg["cache_choice"],
+                                         int(cache_cfg.get("max_size", 10000))))
+        return agent
+
+    def _create_agent(self, agent_cfg: Dict, manager, game_dir: Optional[str]) -> Agent:
         agent_type = agent_cfg["agent_type"]
         if agent_type == "random":
             return RandomAgent()

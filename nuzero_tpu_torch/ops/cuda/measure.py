@@ -67,6 +67,24 @@ def launches_per_update(iterations: int = TRAIN_ITERS) -> dict:
     return {"forward": convs, "dx": convs - 1, "dw": convs}
 
 
+def launches_per_progressive_update(iterations: int, n: int, k: int) -> dict:
+    """Kernel launches of one learner update with the progressive loss on
+    and its draws ``(n, k)`` (``training/learner.py:progressive_draws``):
+    ``launches_per_update`` for the full forward, plus a second forward of
+    ``n + k`` iterations whose thought is detached at iteration ``n`` (none
+    where n is 0).  Its backward reaches only the convs after the detach
+    and the heads (6 convs), and no dX where a conv's input is detached
+    (the first conv of iteration ``n``, the recall on the detached thought
+    and the observation) or is the observation (the stem)."""
+    base = launches_per_update(iterations)
+    convs = 7 + 5 * (n + k)
+    if n == 0:
+        dw, dx = convs, convs - 1
+    else:
+        dw, dx = 5 * k + 6, 5 * k + 5
+    return {"forward": base["forward"] + convs, "dx": base["dx"] + dx, "dw": base["dw"] + dw}
+
+
 def bound(dtype_name, batch, rows, cols, cin, cout):
     """The least time (ms) the card could take for one hex conv, and what
     bounds it: 2*7*M*Cin*Cout operations at the dtype's peak, or x, W and y

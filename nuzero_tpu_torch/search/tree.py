@@ -139,3 +139,40 @@ def reroot(tree: Tree, action: torch.Tensor) -> tuple[Tree, torch.Tensor]:
     tree.root.copy_(c_safe)
     tree.free.copy_(free)
     return tree, ok
+
+
+def print_tree(tree: Tree, game_idx: int = 0, max_children: int = 8, file=None) -> str:
+    """Host-side dump of game ``game_idx``'s tree (counterpart of the JAX
+    ``print_tree``; ref ``Explorer.print_tree``, ``Search/Explorer.py:216``):
+    a depth-indented listing of the allocated nodes from the root, children
+    by descending visits, with visits, mean value, prior and the terminal
+    flag.  Prints it and returns it."""
+    import numpy as np
+
+    def host(t):
+        return t[game_idx].detach().cpu().numpy()
+
+    visit, vsum, child = host(tree.visit), host(tree.value_sum), host(tree.child)
+    prior, to_play, term = host(tree.prior), host(tree.to_play), host(tree.is_terminal)
+    n_alloc = int((~host(tree.free)).sum())
+
+    lines = [f"tree: {n_alloc} allocated nodes / {visit.shape[0]} capacity"]
+
+    def rec(node, depth, via_action, via_prior):
+        q = vsum[node] / max(int(visit[node]), 1)
+        tag = " TERMINAL" if term[node] else ""
+        via = f"a={via_action} p={via_prior:.3f} -> " if via_action is not None else ""
+        lines.append(f"{'  ' * depth}{via}node {node}: n={int(visit[node])} "
+                     f"q={q:+.3f} to_play={int(to_play[node])}{tag}")
+        kids = [(int(child[node, a]), a) for a in np.flatnonzero(child[node] >= 0)]
+        kids.sort(key=lambda ka: -int(visit[ka[0]]))
+        for c, a in kids[:max_children]:
+            rec(c, depth + 1, a, float(prior[node, a]))
+        if len(kids) > max_children:
+            lines.append(f"{'  ' * (depth + 1)}... {len(kids) - max_children} more children")
+
+    if n_alloc > 0:
+        rec(int(tree.root[game_idx]), 0, None, None)
+    out = "\n".join(lines)
+    print(out, file=file)
+    return out

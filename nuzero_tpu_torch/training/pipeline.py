@@ -79,9 +79,10 @@ from nuzero_tpu_torch.training.selfplay import (
     capture_selfplay_step, init_selfplay, make_selfplay_step, play_in_place,
 )
 from nuzero_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from nuzero_tpu_torch.utils.metrics import MetricsJournal, PrintBar
+from nuzero_tpu_torch.utils.metrics import MetricsJournal
 from nuzero_tpu_torch.utils.packing import make_packer
 from nuzero_tpu_torch.utils.plots import plot_training_run
+from nuzero_tpu_torch.utils.printbar import PrintBar
 from nuzero_tpu_torch.utils.profiling import PhaseTimers
 
 

@@ -1,12 +1,12 @@
-"""Metrics journal + progress reporting (counterpart of
-``nuzero_tpu/utils/metrics.py``): an append-only JSONL journal, one record
-per training step, and a block progress bar."""
+"""Metrics journal (counterpart of ``nuzero_tpu/utils/metrics.py``'s
+``MetricsJournal``): an append-only JSONL journal, one record per training
+step.  The progress bar is ``utils/printbar.py``'s, as in the JAX
+pipeline."""
 
 from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -39,30 +39,3 @@ class MetricsJournal:
             with open(self.path, "w") as f:
                 for r in records:
                     f.write(json.dumps(r) + "\n")
-
-
-class PrintBar:
-    """Flush-friendly block progress bar (ref ``PrintBar.py:2-22``)."""
-
-    def __init__(self, name: str, total: int, width: int = 15):
-        self.name = name
-        self.total = max(total, 1)
-        self.width = width
-        self.n = 0
-        self._render()
-
-    def _render(self):
-        filled = int(self.width * self.n / self.total)
-        bar = "#" * filled + "-" * (self.width - filled)
-        sys.stdout.write(f"\r{self.name} [{bar}] {self.n}/{self.total}")
-        sys.stdout.flush()
-
-    def next(self, n: int = 1):
-        self.n = min(self.n + n, self.total)
-        self._render()
-
-    def finish(self):
-        self.n = self.total
-        self._render()
-        sys.stdout.write("\n")
-        sys.stdout.flush()

@@ -630,3 +630,30 @@ def test_two_game_types_launch_their_own_iteration_counts(cuda_card):
     assert graphs[0] is not graphs[1] and graphs[0].sp is not graphs[1].sp
     assert len(az._graphs) == 4
     assert set(az.buffer.game_type[az.buffer.length > 0].tolist()) == {0, 1}
+
+
+@pytest.mark.cuda
+def test_ttt_milestone_policy_rate_on_card(cuda_card):
+    """The committed ``ttt_long_r3c`` export's raw policy on the card against
+    the random agent, 1,024 games a seat: no loss as P1 and a non-loss rate
+    of at least 0.98 as P0, the JAX run's worst evaluation of its policy
+    after step 75 (``tests/test_torch_transfer.py`` holds the same bars on
+    the CPU; there the port loses ~0.5% as P0).  Its network is a
+    ``RecurrentNet(hex=False)`` of square 3x3 convs, so no hex-conv kernel
+    runs."""
+    from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta
+    from nuzero_tpu_torch.evaluation import PolicyAgent, RandomAgent, TestManager
+    from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    asset = os.path.join(repo, "nuzero_tpu_torch", "assets", "runs", "ttt_long_r3c")
+    env, mgr = build_from_meta(load_run_meta(asset), repo, device="cuda")
+    params = restore_checkpoint(os.path.join(asset, "checkpoints"), device="cuda")[0]["params"]
+    tm = TestManager(env)
+    agent = PolicyAgent(mgr, params)
+    hexconv_kernel.reset_launch_count()
+    as_p0 = tm.run_test_batch(1024, agent, RandomAgent(), show_results=False)
+    as_p1 = tm.run_test_batch(1024, RandomAgent(), agent, show_results=False)
+    assert as_p1.p0_wins == 0, as_p1
+    assert (as_p0.p0_wins + as_p0.draws) / 1024 >= 0.98, as_p0
+    assert sum(hexconv_kernel.launch_count.values()) == 0

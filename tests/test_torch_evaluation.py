@@ -271,12 +271,22 @@ def test_board_size_sweep():
 
 
 def test_agent_cache_section_is_refused():
+    """An agent's Cache section was refused while the host caches were not
+    ported; it now gives the agent its cache, as in the JAX package, and a
+    disabled one none.  A network agent without a manager is still refused."""
+    from nuzero_tpu_torch.utils.caches import DictCache, KeylessCache
+
     tm = TestManager(TicTacToe(device="cpu"))
-    with pytest.raises(NotImplementedError, match="Cache"):
-        tm.create_agent_from_config({"agent_type": "random",
-                                     "Cache": {"cache_choice": "dict", "max_size": 8}})
-    assert isinstance(tm.create_agent_from_config(
-        {"agent_type": "random", "Cache": {"cache_choice": "disabled"}}), RandomAgent)
+    agent = tm.create_agent_from_config({"agent_type": "random",
+                                         "Cache": {"cache_choice": "dict", "max_size": 8}})
+    assert isinstance(agent, RandomAgent) and isinstance(agent.cache, DictCache)
+    assert agent.cache.max_length() == 8
+    keyless = tm.create_agent_from_config({"agent_type": "goal_rush",
+                                           "Cache": {"cache_choice": "keyless"}})
+    assert isinstance(keyless.cache, KeylessCache) and keyless.cache.max_length() == 8192
+    agent = tm.create_agent_from_config(
+        {"agent_type": "random", "Cache": {"cache_choice": "disabled"}})
+    assert isinstance(agent, RandomAgent) and agent.cache is None
     with pytest.raises(ValueError, match="NetworkManager"):
         tm.create_agent_from_config({"agent_type": "policy"})
 

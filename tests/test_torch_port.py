@@ -40,7 +40,10 @@ for name in names:
     importlib.import_module(name)
 for module in ("ops.cuda.hexconv_kernel", "training.learner", "training.losses",
                "training.pipeline", "training.replay", "utils.checkpoint", "utils.metrics",
-               "utils.profiling", "config.schemas"):
+               "utils.profiling", "config.schemas", "run", "__main__", "interactive",
+               "config.yaml_io", "search.tree", "utils.render", "utils.printbar", "native",
+               "utils.caches", "evaluation.agents", "evaluation.manager", "evaluation.human",
+               "utils.viewer", "envs.aec"):
     assert "nuzero_tpu_torch." + module in names, (module, names)
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
@@ -49,6 +52,11 @@ w = torch.randn(7, 4, 3, requires_grad=True)
 hexconv.hex_conv(x, w).sum().backward()
 assert x.grad is not None and w.grad is not None
 assert sum(hexconv_kernel.launch_count.values()) == 0
+# Importing builds nothing and loads no native library, and pygame stays
+# unimported until a viewer is made.
+from nuzero_tpu_torch import native
+assert native._lib is None and not native._tried
+assert "pygame" not in sys.modules
 print("imported", len(names))
 """
 
@@ -99,10 +107,18 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
+def _cli_entry_points():
+    from nuzero_tpu_torch import interactive, run
+
+    return [run.training_preset, run.testing_preset, run.debug_preset, run.analyse_run,
+            run.live_goalrush, run.play, interactive.Wizard.__init__, interactive.start]
+
+
 @pytest.mark.parametrize("entry", [SCSGame.__init__, init_tree, create_buffer,
-                                   restore_checkpoint])
+                                   restore_checkpoint, *_cli_entry_points()])
 def test_entry_points_default_to_the_card(entry):
-    """The port runs on the card unless the caller asks for the CPU."""
+    """The port runs on the card unless the caller asks for the CPU: the
+    library's entry points, the CLI's modes and the wizard's launch paths."""
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
@@ -127,6 +143,20 @@ def test_training_entry_points_follow_their_inputs(tmp_path):
                          plotting=PlottingConfig(plot_loss=False))
     az = AlphaZero(env, mgr, cfg, SearchParams(num_simulations=2), run_dir=str(tmp_path))
     assert az.device.type == "cpu" and az.buffer.states.device.type == "cpu"
+
+
+def test_cli_defaults_to_the_card():
+    """``python -m nuzero_tpu_torch`` takes run.py's arguments and
+    ``--device``, default cuda."""
+    from nuzero_tpu_torch import run
+
+    args = run.build_parser().parse_args(["--debug", "0"])
+    assert args.device == "cuda"
+    for flags in (["--training-preset", "2", "--filters", "256", "--net-dtype", "bfloat16"],
+                  ["--testing-preset", "1", "--view"], ["--play", "mcts", "--cache", "keyless"],
+                  ["--analyse", "r"], ["--interactive"], ["--training-preset", "0", "--name",
+                  "n", "--train-config", "t", "--search-config", "s"]):
+        run.build_parser().parse_args(flags)
 
 
 @pytest.mark.parametrize("dtype,batch,cin,cout,ms,by", [
@@ -275,6 +305,43 @@ def test_chip_smoke_update_shapes_and_launches(filters, shapes):
     assert chip_smoke.conv_shapes(filters, iterations=chip_smoke.TRAIN_ITERS) == shapes
     assert chip_smoke.launches_per_update() == {"forward": 27, "dx": 26, "dw": 27}
     assert sum(n for *_, n in shapes) == 27
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for n in range(4) for k in range(1, 5 - n)])
+def test_progressive_update_launches(n, k, monkeypatch):
+    """The launches chip_smoke.py expects of one update with the progressive
+    loss on (4 iterations, draws (n, k)), counted here as calls of the
+    plain versions on the CPU, which stand where the card launches the
+    forward (and dX) and the dW kernel."""
+    from nuzero_tpu_torch.ops import hexconv
+    from nuzero_tpu_torch.ops.cuda.measure import launches_per_progressive_update
+
+    counts = {"forward": 0, "dx": 0, "dw": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            counts[name] += 1
+            return fn(*args)
+        return call
+
+    for name, attr in (("forward", "hex_conv_plain"), ("dx", "hex_conv_dx_plain"),
+                       ("dw", "hex_conv_dw_plain")):
+        monkeypatch.setattr(hexconv, attr, counted(name, getattr(hexconv, attr)))
+    env = SCSGame(load_scenario(str(REPO / "configs/scenarios/open_field_5.yml"), seed=42),
+                  device="cpu")
+    mgr = NetworkManager(RecurrentNet(86, 21, num_filters=8), env.observation_shape)
+    learner = Learner(mgr, LearnerConfig(train_iterations=4, prog_alpha=0.01),
+                      draws=lambda rng, m: (n, k))
+    state = learner.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    obs = env.observe(env.init(2))
+    policy = torch.softmax(torch.randn(2, env.num_actions, generator=gen), -1)
+    learner.train_step(state, (obs, policy, torch.zeros(2), torch.zeros(2, dtype=torch.int32)),
+                       torch.Generator())
+    # The plain dX is the plain forward on mirrored taps, as dX on the card
+    # is the forward kernel: the forward count holds both.
+    want = launches_per_progressive_update(4, n, k)
+    assert counts == {**want, "forward": want["forward"] + want["dx"]}
 
 
 def test_library_backward_is_the_hex_backward():

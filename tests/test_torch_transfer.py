@@ -1,11 +1,13 @@
 """The DeepThinking transfer path: the committed runs' weights in the port.
 
-The three SCS runs under ``runs/`` are Orbax checkpoints of the JAX
-package.  ``export_run`` carries one across: it restores the checkpoint
-with the JAX package, maps its ``params`` through
-``nuzero_tpu_torch/networks/convert.py`` and writes the parameters and the
-update count, nothing else, in the port's checkpoint format, beside a copy
-of the run's ``run_meta.yaml``.  The results are committed under
+The three SCS runs under ``runs/`` and the Tic-Tac-Toe milestone run
+``runs/ttt_long_r3c`` are Orbax checkpoints of the JAX package.
+``export_run`` carries one across: it restores the checkpoint with the JAX
+package, maps its ``params`` through ``nuzero_tpu_torch/networks/convert.py``
+and writes the parameters and the update count, nothing else, in the
+port's checkpoint format, beside a copy of the run's ``run_meta.yaml`` (or,
+for ``ttt_long_r3c``, which has none, one written from its README's recipe,
+``TTT_META``).  The results are committed under
 ``nuzero_tpu_torch/assets/runs/<run>/`` so that a machine without JAX can
 load them; regenerate them with
 
@@ -42,7 +44,9 @@ from nuzero_tpu.evaluation import TestManager as JaxTestManager  # noqa: E402
 from nuzero_tpu.evaluation import agents as jax_agents  # noqa: E402
 from nuzero_tpu.evaluation.arena import Arena as JaxArena  # noqa: E402
 from nuzero_tpu.utils.checkpoint import restore_checkpoint as jax_restore  # noqa: E402
-from nuzero_tpu_torch.config.run_meta import build_from_meta, load_run_meta  # noqa: E402
+from nuzero_tpu_torch.config.run_meta import (  # noqa: E402
+    build_from_meta, load_run_meta, save_run_meta,
+)
 from nuzero_tpu_torch.evaluation import sweeps  # noqa: E402
 from nuzero_tpu_torch.evaluation.agents import PolicyAgent, RandomAgent  # noqa: E402
 from nuzero_tpu_torch.evaluation.arena import Arena  # noqa: E402
@@ -54,22 +58,32 @@ from nuzero_tpu_torch.utils.checkpoint import (  # noqa: E402
 torch.set_num_threads(2)
 
 RUNS = ("scs_solo_r3", "scs_solo_prog_r3", "scs_solo_rvp_r5")
+# The Tic-Tac-Toe milestone run (runs/ttt_long_r3c/README.md: TTT +
+# RecurrentNet(64f, 2 blocks, 2 iterations, hex=False)); it has no
+# run_meta.yaml of its own.
+TTT_RUN = "ttt_long_r3c"
+TTT_META = dict(game="ttt", arch="recurrent", hex=False, num_filters=64, num_blocks=2)
 JAX_RUNS = os.path.join(REPO, "runs")
 ASSETS = os.path.join(REPO, "nuzero_tpu_torch", "assets", "runs")
 
 
-def export_run(run_dir: str, out_dir: str) -> str:
+def export_run(run_dir: str, out_dir: str, meta: dict = None) -> str:
     """Write the latest Orbax checkpoint of ``run_dir`` as a port checkpoint
     under ``out_dir/checkpoints`` (``{"params": state_dict, "step": update
-    count}``, same checkpoint step) and copy ``run_meta.yaml`` beside it.
-    Returns the checkpoint's path."""
+    count}``, same checkpoint step) and copy ``run_meta.yaml`` beside it, or
+    write one from ``meta`` (``save_run_meta``'s arguments) where the run
+    has none.  Returns the checkpoint's path."""
     tree, step = jax_restore(os.path.join(run_dir, "checkpoints"), "auto")
     params = {k: torch.from_numpy(np.ascontiguousarray(v))
               for k, v in recurrent_net_state_dict(tree["params"]).items()}
     if os.path.isdir(out_dir):
         shutil.rmtree(out_dir)
     os.makedirs(out_dir)
-    shutil.copyfile(os.path.join(run_dir, "run_meta.yaml"), os.path.join(out_dir, "run_meta.yaml"))
+    if meta is None:
+        shutil.copyfile(os.path.join(run_dir, "run_meta.yaml"),
+                        os.path.join(out_dir, "run_meta.yaml"))
+    else:
+        save_run_meta(out_dir, **meta)
     return save_checkpoint(os.path.join(out_dir, "checkpoints"), step,
                            {"params": params, "step": int(tree["step"])})
 
@@ -141,6 +155,112 @@ def test_build_from_meta_matches_jax():
         _, tvars = _torch_net(run)
         assert {k: tuple(v.shape) for k, v in variables.items()} == {
             k: tuple(v.shape) for k, v in tvars.items()}
+
+
+# --------------------------------------------------------------------------- #
+# The Tic-Tac-Toe milestone run, ttt_long_r3c                                 #
+# --------------------------------------------------------------------------- #
+
+# Policy logits and value of the converted net against JAX's, absolute:
+# both are O(1) on TTT, and the two frameworks sum the f32 products of the
+# 3x3 convs in other orders.
+TTT_TOL = 1e-5
+# Games per seat of the non-loss rates against random, few enough for the
+# CPU.  The bars are the JAX run's own evaluations of this net: its journal
+# (256 policy and 128 MCTS games a seat every 25 / 50 steps) reads 1.00 /
+# 1.00 for MCTS at every evaluation and at step 2,400 0.996 (255 of 256) /
+# 1.00 for the raw policy, whose worst evaluation after step 75 is 0.980
+# (the README's "1.00 / 1.00 from step 75 on" is that, rounded).  The
+# port's policy lost 61 of 12,288 games as P0 and none of 12,288 as P1
+# against random on the CPU (0.995 / 1.00; MCTS none of 1,024 a seat;
+# ``python tests/test_torch_transfer.py --rates``).
+TTT_POLICY_GAMES, TTT_MCTS_GAMES = 256, 16
+TTT_POLICY_P0_BAR = 0.98
+
+
+def test_ttt_asset_equals_a_fresh_export(tmp_path):
+    """The committed ``ttt_long_r3c`` export equals a fresh one, tensor for
+    tensor; its ``run_meta.yaml`` is the README's recipe; params and step
+    only (the JAX checkpoint also holds the optimizer and the buffer)."""
+    fresh = export_run(os.path.join(JAX_RUNS, TTT_RUN), str(tmp_path / TTT_RUN), TTT_META)
+    committed = os.path.join(ASSETS, TTT_RUN)
+    want = torch.load(fresh, weights_only=True)
+    got, step = restore_checkpoint(os.path.join(committed, "checkpoints"), device="cpu")
+    assert step == 2400 and os.path.basename(fresh) == "step_00002400.pt"
+    assert set(got) == {"params", "step"} and got["step"] == want["step"] == 9600
+    assert got["params"].keys() == want["params"].keys()
+    for name, t in want["params"].items():
+        assert torch.equal(got["params"][name], t), name
+    meta = load_run_meta(committed)
+    assert meta == load_run_meta(str(tmp_path / TTT_RUN))
+    assert {k: meta[k] for k in TTT_META} == TTT_META
+    assert sorted(os.listdir(committed)) == ["checkpoints", "run_meta.yaml"]
+
+
+def _ttt_positions(n=64, seed=0):
+    """(JAX states, port states) of ``n`` games of Tic-Tac-Toe, game b after
+    b % 9 random legal moves (from numpy's ``default_rng(seed)``), stopped
+    early where a game ends."""
+    from nuzero_tpu.envs import TicTacToe as JaxTicTacToe
+    from nuzero_tpu_torch.envs.tictactoe import TicTacToe
+
+    jenv, env = JaxTicTacToe(), TicTacToe(device="cpu")
+    rng = np.random.default_rng(seed)
+    jstates, tstates = [], []
+    for b in range(n):
+        js, ts = jenv.init(None), env.init(1)
+        for _ in range(b % 9):
+            if bool(js.terminal):
+                break
+            a = int(rng.choice(np.flatnonzero(np.asarray(jenv.legal_mask(js)))))
+            js = jenv.step(js, jnp.int32(a))
+            ts = env.step(ts, torch.tensor([a], dtype=torch.int32))
+        jstates.append(js)
+        tstates.append(ts)
+    return jenv, env, jax.tree.map(lambda *xs: jnp.stack(xs), *jstates), tstates
+
+
+def test_ttt_net_matches_jax():
+    """The converted net and JAX's on the same 64 positions: observations
+    equal, policy logits and value within ``TTT_TOL`` at 2 iterations."""
+    meta = load_run_meta(os.path.join(ASSETS, TTT_RUN))
+    _, jmgr = jax_build_from_meta(meta, REPO)
+    jtree, _ = jax_restore(os.path.join(JAX_RUNS, TTT_RUN, "checkpoints"), "auto")
+    _, tmgr = build_from_meta(meta, REPO, device="cpu")
+    tree, _ = restore_checkpoint(os.path.join(ASSETS, TTT_RUN, "checkpoints"), device="cpu")
+    jenv, env, jstates, tstates = _ttt_positions()
+    jobs = np.asarray(jax.vmap(jenv.observe)(jstates))
+    obs = torch.cat([env.observe(s) for s in tstates])
+    np.testing.assert_array_equal(obs.numpy(), jobs)
+    jp, jv, _ = jmgr.apply(jtree["params"], jnp.asarray(jobs), iters_to_do=2)
+    with torch.no_grad():
+        tp, tv, _ = tmgr.apply(tree["params"], obs, iters_to_do=2)
+    for got, want in ((tp, jp), (tv, jv)):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        assert np.abs(got.numpy() - want).max() <= TTT_TOL
+
+
+def test_ttt_asset_nonloss_against_random():
+    """The committed net's non-loss rates against the random agent, from
+    each seat, as the milestone counts them (wins + draws over games):
+    MCTS at 100 simulations 1.00 / 1.00, the raw policy 1.00 as P1 and at
+    least ``TTT_POLICY_P0_BAR`` as P0 (exact counts; see the bars above)."""
+    from nuzero_tpu_torch.evaluation import MctsAgent, PolicyAgent, TestManager
+    from nuzero_tpu_torch.search.mcts import SearchParams
+
+    env, mgr = build_from_meta(load_run_meta(os.path.join(ASSETS, TTT_RUN)), REPO,
+                               device="cpu")
+    params = restore_checkpoint(os.path.join(ASSETS, TTT_RUN, "checkpoints"),
+                                device="cpu")[0]["params"]
+    tm = TestManager(env)
+    for agent, games, p0_bar in (
+            (PolicyAgent(mgr, params), TTT_POLICY_GAMES, TTT_POLICY_P0_BAR),
+            (MctsAgent(mgr, params, SearchParams(num_simulations=100)), TTT_MCTS_GAMES, 1.0)):
+        as_p0 = tm.run_test_batch(games, agent, RandomAgent(), show_results=False)
+        as_p1 = tm.run_test_batch(games, RandomAgent(), agent, show_results=False)
+        assert as_p1.p0_wins == 0, (agent.name, as_p1)
+        assert (as_p0.p0_wins + as_p0.draws) / games >= p0_bar, (agent.name, as_p0)
 
 
 # --------------------------------------------------------------------------- #
@@ -370,9 +490,37 @@ def test_arena_draws_each_games_layout_from_its_generator():
         6, generator=torch.Generator().manual_seed(5)).vp)
 
 
+def ttt_rates(seeds=3, policy_games=4096, mcts_games=512):
+    """Losses of the exported ttt_long_r3c net against the random agent on
+    the CPU, per seat: the raw policy over ``seeds`` x ``policy_games``
+    games a seat and MCTS (100 simulations) over 2 x ``mcts_games``."""
+    from nuzero_tpu_torch.evaluation import MctsAgent, PolicyAgent, TestManager
+    from nuzero_tpu_torch.search.mcts import SearchParams
+
+    env, mgr = build_from_meta(load_run_meta(os.path.join(ASSETS, TTT_RUN)), REPO,
+                               device="cpu")
+    params = restore_checkpoint(os.path.join(ASSETS, TTT_RUN, "checkpoints"),
+                                device="cpu")[0]["params"]
+    tm = TestManager(env)
+    for agent, games, n_seeds in ((PolicyAgent(mgr, params), policy_games, seeds),
+                                  (MctsAgent(mgr, params, SearchParams(num_simulations=100)),
+                                   mcts_games, 2)):
+        lost = [0, 0]
+        for seed in range(n_seeds):
+            lost[0] += tm.run_test_batch(games, agent, RandomAgent(), tm.generator(seed),
+                                         show_results=False).p1_wins
+            lost[1] += tm.run_test_batch(games, RandomAgent(), agent, tm.generator(seed),
+                                         show_results=False).p0_wins
+        print(f"{agent.name}: lost {lost[0]} of {n_seeds * games} as P0, {lost[1]} of "
+              f"{n_seeds * games} as P1")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--rates"]:
+        ttt_rates()
+        raise SystemExit(0)
     if sys.argv[1:] != ["--export"]:
-        raise SystemExit("usage: python tests/test_torch_transfer.py --export")
-    for name in RUNS:
-        path = export_run(os.path.join(JAX_RUNS, name), os.path.join(ASSETS, name))
+        raise SystemExit("usage: python tests/test_torch_transfer.py --export | --rates")
+    for name, meta in [*((name, None) for name in RUNS), (TTT_RUN, TTT_META)]:
+        path = export_run(os.path.join(JAX_RUNS, name), os.path.join(ASSETS, name), meta)
         print(f"{name}: {path} ({os.path.getsize(path)} bytes)")
