@@ -182,8 +182,41 @@ The command line:
    ``--view`` open the pygame viewer, which the card machine lacks; they
    are held headless on a CPU host (``tests/test_torch_viewer.py``).
 
+The last modules of the port:
+
+16. the discontinued value heads (``depth``, ``combined``, ``separable``,
+   ``reverse``, ``rawsep``, ``strange``): (a) their hex convs' shapes
+   (256 -> 256, 256 -> 64, 64 -> 8, 8 -> 1, 256 -> 1, 64 -> 256, 64 -> 1)
+   forward, dX and dW against the plain versions in both dtypes at B=64;
+   (b) each head in ``RecurrentNet(num_filters=256, num_blocks=2, hex=True)``
+   in bf16 and at 64f in f32, on weights drawn in the JAX package's Flax
+   tree (``flax_variables``) and carried across by ``networks/convert.py``,
+   one forward at B=64 on ``open_field_5.yml`` positions against the same
+   weights on the CPU (f32 within 1e-4 of each output's largest entry;
+   bf16 within 1e-2 of its largest or of 0.1, and in norm within twice
+   bf16's own error) with its hex-conv launches exact (14 depth, 17 combined and strange, 13
+   separable, reverse and rawsep); (c) one learner update of each, its
+   launches exact; (e) the f32 depthwise convs with TF32 allowed, within
+   1e-5 of float64;
+17. data-parallel training on the one card, ranks as subprocesses over
+   gloo (NCCL refuses two ranks on one device): (a) the CLI's
+   ``--training-preset 2 --filters 256 --net-dtype bfloat16`` cut as phase
+   15 cuts it, on 2 ranks of a torchrun-style launch (64 of the 128 actors
+   each), then its one-step resume at 2 ranks; each rank reports through
+   ``DP_DRIVER`` a SHA-256 of its params (equal across ranks), its
+   launches (exact, ``expected_cli_launches``) and its ring's games; the
+   journal holds each step once and each checkpoint is written once, with
+   one ring file per rank; (b) the gradient of one global batch by 2 ranks
+   (the learner's all-reduced gradient, which every rank applies) and by
+   1, 64f f32 (within 1e-5 of each tensor's largest), 256f bf16 (within
+   1e-2 of the gradient's largest, each tensor within twice bf16's own
+   error, as phase 7 holds bf16);
+   (c) a one-rank NCCL group's gradient bit-equal to the one without it.  NCCL
+   across cards needs more than one card and is not run.
+
 The last two lines are a JSON summary of the kernels (with each kernel's
-launches in phase 15, ``cli``) and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+launches in phase 15, ``cli``, 16, ``heads``, and 17, rank 0's,
+``data_parallel``) and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -709,12 +742,12 @@ def random_batch(env, batch, gen, device):
     return tuple(t.to(device) for t in (obs, pol, val, gt))
 
 
-def learner_for(mgr, alpha, draws=None):
-    from nuzero_tpu_torch.training.learner import Learner, LearnerConfig
+def learner_for(mgr, alpha, draws=None, mesh=None):
+    from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, progressive_draws
 
     cfg = LearnerConfig(optimizer="Adam", learning_rate=1e-3, train_iterations=TRAIN_ITERS,
                         prog_alpha=alpha)
-    return Learner(mgr, cfg, draws=draws) if draws else Learner(mgr, cfg)
+    return Learner(mgr, cfg, draws=draws or progressive_draws, mesh=mesh)
 
 
 def grad_check(filters, dtype):
@@ -1016,24 +1049,42 @@ def random_positions(env, batch, gen, moves=6):
     return states
 
 
-def compare_cpu(label, mgr, cpu_mgr, variables, obs, rel):
-    """The net on the card against the same weights on the CPU (plain path)."""
+def compare_cpu(label, mgr, cpu_mgr, variables, obs, rel, floor=0.1, f32_mgr=None):
+    """The net on the card against the same weights on the CPU (plain path),
+    each output within ``rel`` of its largest entry on the CPU, or of
+    ``floor`` where that is larger.  With ``f32_mgr``, the f32 twin of a
+    bf16 net on the CPU, each output is also held as phase 7 holds bf16:
+    its distance from the CPU's, in norm, within twice bf16's own (the
+    CPU's bf16 output against the f32 one).  That check has no floor."""
     import torch
 
+    cpu_variables = {k: t.cpu() for k, t in variables.items()}
     with torch.no_grad():
         p, v, _ = mgr.apply(variables, obs)
-        p_ref, v_ref, _ = cpu_mgr.apply({k: t.cpu() for k, t in variables.items()}, obs.cpu())
+        p_ref, v_ref, _ = cpu_mgr.apply(cpu_variables, obs.cpu())
+        refs32 = (f32_mgr.apply(cpu_variables, obs.cpu())[:2] if f32_mgr is not None
+                  else (None, None))
     torch.cuda.synchronize()
-    for got, want, name in ((p, p_ref, "logits"), (v, v_ref, "value")):
+    for got, want, want32, name in zip((p, v), (p_ref, v_ref), refs32, ("logits", "value")):
         got = got.cpu().float()
         want = want.float()
         if not (got.shape == want.shape and torch.isfinite(got).all()):
             raise AssertionError(f"{label} {name}: bad shape or non-finite values")
         err = (got - want).abs().max().item()
-        scale = max(want.abs().max().item(), 0.1)
+        top = want.abs().max().item()
+        scale = max(top, floor)
         if err > rel * scale:
             raise AssertionError(f"{label} {name}: card vs CPU err {err} > {rel * scale}")
-        log(f"{label} {name}: card vs CPU max abs err {err:.3e} (scale {scale:.3e})")
+        own = ""
+        if want32 is not None:
+            dist = ((got - want).norm() / want.norm()).item()
+            bf16 = ((want - want32.float()).norm() / want32.float().norm()).item()
+            if dist > 2 * bf16:
+                raise AssertionError(f"{label} {name}: card vs CPU {dist:.3e} of its norm, "
+                                     f"over twice bf16's own {bf16:.3e}")
+            own = f"; {dist:.3e} in norm, {dist / bf16:.2f}x bf16's own {bf16:.3e}"
+        log(f"{label} {name}: card vs CPU max abs err {err:.3e} (max|{name}| {top:.3e}, "
+            f"{err / scale:.3e} of scale {scale:.3e}{own})")
 
 
 def zoo_check(card):
@@ -2439,6 +2490,469 @@ def cli_phase(card, iteration_curve):
     return launches
 
 
+# Phase 16: every discontinued value head in the hex RecurrentNet, on the
+# card.  Their hex convs take shapes no other phase holds (Cin 8 -> Cout 1,
+# 64 -> 8, 256 -> 64, the width-64 net's 64 -> 256, depth's 256 -> 1).
+HEADS = ("depth", "combined", "separable", "reverse", "rawsep", "strange")
+HEAD_BATCH = 64
+HEAD_NODES = {"depth": "DepthValueHead_0", "combined": "CombinedValueHead_0",
+              "separable": "SeparableValueHead_0", "reverse": "ReverseValueHead_0",
+              "rawsep": "RawSeparableValueHead_0", "strange": "StrangeValueHead_0",
+              "reduce": "ReduceValueHead_0"}
+
+
+def flax_variables(net, head, seed):
+    """Variables of ``net`` (a hex RecurrentNet with value head ``head``) in
+    the JAX package's Flax tree (``nuzero_tpu/networks/recurrent.py``; the
+    heads' names as Flax gives them, Strange's 1x1 and hex convs numbered by
+    one counter), each kernel drawn from ``seed`` as Flax initializes it
+    (uniform, variance 1/(3 fan_in)); ``networks/convert.py`` maps them
+    back."""
+    import re
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    node = HEAD_NODES[head]
+    params = {}
+
+    def put(path, shape, fan_in):
+        bound = (1.0 / fan_in) ** 0.5
+        tree = params
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    for key, value in net.state_dict().items():
+        shape = tuple(value.shape)
+        hex_kernel = ("HexConv_0", "kernel")
+        if key == "stem.conv.weight":
+            put(("Conv_0",) + hex_kernel, shape, shape[0] * shape[1])
+        elif key == "cell.recall.conv.weight":
+            put(("Scan_RecurCell_0", "Conv_0") + hex_kernel, shape, shape[0] * shape[1])
+        elif m := re.fullmatch(r"cell\.blocks\.(\d+)\.conv(\d)\.conv\.weight", key):
+            put(("Scan_RecurCell_0", f"BasicBlock_{m[1]}", f"Conv_{int(m[2]) - 1}")
+                + hex_kernel, shape, shape[0] * shape[1])
+        elif m := re.fullmatch(r"policy_head\.convs\.(\d+)\.conv\.weight", key):
+            put(("ReducePolicyHead_0", f"Conv_{m[1]}") + hex_kernel, shape, shape[0] * shape[1])
+        elif m := re.fullmatch(r"value_head\.convs\.(\d+)\.conv\.weight", key):
+            i = int(m[1]) * 2 + 1 if head == "strange" else int(m[1])
+            put((node, f"Conv_{i}") + hex_kernel, shape, shape[0] * shape[1])
+        elif m := re.fullmatch(r"value_head\.pointwise\.(\d+)\.weight", key):
+            i = int(m[1]) * 2 if head == "strange" else int(m[1])
+            put((node, f"Conv_{i}", "kernel"), shape[::-1], shape[1])  # OI11 -> 11IO
+        elif m := re.fullmatch(r"value_head\.depthwise\.(\d+)\.conv\.weight", key):
+            if len(shape) == 2:
+                put((node, f"DepthwiseConv_{m[1]}", "HexDepthwiseConv_0", "kernel"), shape, 7)
+            else:  # the ortho grouped 3x3, OIHW [C, 1, 3, 3] -> HWIO
+                put((node, f"DepthwiseConv_{m[1]}", "Conv_0", "kernel"),
+                    (3, 3, 1, shape[0]), 9)
+        else:
+            raise KeyError(f"no Flax name for {key}")
+    return {"params": params}
+
+
+def head_net(env, filters, dtype, head):
+    from nuzero_tpu_torch.networks.manager import NetworkManager
+    from nuzero_tpu_torch.networks.recurrent import RecurrentNet
+
+    net = RecurrentNet(env.observation_shape[0], env.action_space_shape[0], num_filters=filters,
+                       num_blocks=2, recall=True, hex=True, dtype=dtype,
+                       value_head=head).to(env.device)
+    return NetworkManager(net, env.observation_shape)
+
+
+def tf32_check():
+    """The f32 depthwise convs with every TF32 flag on: the hex depthwise
+    conv (elementwise f32) and the grouped 3x3 (cuDNN, inside the port's
+    TF32 guard) against float64 on the CPU, within 1e-5 of scale; a TF32
+    product keeps ~3 digits (2^-11 relative)."""
+    import torch
+
+    from nuzero_tpu_torch.networks.blocks import OrthoConv
+    from nuzero_tpu_torch.ops.hexconv import hex_conv_depthwise
+
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(HEAD_BATCH, 5, 5, 256, generator=gen)
+    w = torch.randn(7, 256, generator=gen)
+    grouped = OrthoConv(256, 256, 3, groups=256)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            hex_y = hex_conv_depthwise(x.cuda(), w.cuda()).cpu()
+            grouped_y = grouped.cuda()(x.cuda()).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    with torch.no_grad():
+        hex_ref = hex_conv_depthwise(x.double(), w.double())
+        grouped_ref = torch.nn.functional.conv2d(
+            x.double().permute(0, 3, 1, 2), grouped.weight.double().cpu(), padding="same",
+            groups=256).permute(0, 2, 3, 1)
+    for name, got, ref in (("hex depthwise", hex_y, hex_ref),
+                           ("grouped 3x3 depthwise", grouped_y, grouped_ref)):
+        rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+        if rel > 1e-5:
+            raise AssertionError(f"f32 {name} on the card: {rel:.3e} of scale off float64 with "
+                                 "TF32 allowed (TF32 keeps ~5e-4)")
+        log(f"(e) f32 {name} B={HEAD_BATCH} 5x5 C=256 with TF32 allowed: {rel:.3e} of scale "
+            f"off float64 (full f32)")
+
+
+def heads_phase(card):
+    """Phase 16: the discontinued value heads on the card -> the hex-conv
+    launches per kernel of the phase's forwards and updates."""
+    import torch
+
+    from nuzero_tpu_torch.networks.convert import recurrent_net_state_dict
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.ops.cuda.measure import convs_per_evaluation, value_head_conv_shapes
+    from nuzero_tpu_torch.training.learner import TrainState
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    # (a) the heads' hex-conv shapes: forward, dX and dW against the plain
+    # versions, in both dtypes, at B=64 on 5x5 boards.
+    shapes = sorted({shape for head in HEADS for filters in (256, 64)
+                     for shape in value_head_conv_shapes(head, filters)})
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for cin, cout in shapes:
+            err, scale, k_ms, p_ms, l_ms = kernel_check(dtype, HEAD_BATCH, 5, 5, cin, cout, gen)
+            b_ms, b_by = bound(dtype_name, HEAD_BATCH, 5, 5, cin, cout)
+            res = backward_check(dtype, HEAD_BATCH, 5, 5, cin, cout, gen)
+            log(f"(a) head conv {dtype_name} B={HEAD_BATCH} 5x5 {cin}->{cout}: forward err "
+                f"{err:.3e} (max|y| {scale:.3e}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"library {l_ms:.4f} ms; dX err {res['dx'][0]:.3e} (max {res['dx'][1]:.3e}), "
+                f"kernel {res['dx'][2]:.4f} ms; dW err {res['dw'][0]:.3e} (max "
+                f"{res['dw'][1]:.3e}), kernel {res['dw'][2]:.4f} ms, graph {res['dw'][5]:.4f} "
+                f"ms, library {res['dw'][4]:.4f} ms; bound {b_ms:.4f} ms ({b_by})  [{card}]")
+
+    launches = {name: 0 for name in hexconv_kernel.launch_count}
+    env, cpu_env = make_env("cuda"), make_env("cpu")
+    obs = env.observe(random_positions(env, HEAD_BATCH, gen))
+    batch = random_batch(env, HEAD_BATCH, torch.Generator().manual_seed(16), "cuda")
+    for filters, dtype in ((256, torch.bfloat16), (64, torch.float32)):
+        kernel = hexconv_kernel.KERNELS[dtype]
+        dw_kernel = hexconv_kernel.DW_KERNELS[dtype]
+        for i, head in enumerate(HEADS):
+            # (b) converted JAX-shaped weights, card against CPU.
+            mgr = head_net(env, filters, dtype, head)
+            flax = flax_variables(mgr.module, head, seed=100 + i)
+            state_dict = recurrent_net_state_dict(flax)
+            want = mgr.module.state_dict()
+            if set(state_dict) != set(want) or any(
+                    tuple(want[k].shape) != v.shape for k, v in state_dict.items()):
+                raise AssertionError(f"{head}: the converted Flax tree does not fit the net")
+            variables = {k: torch.from_numpy(v).cuda() for k, v in state_dict.items()}
+            label = f"(b) {head} {filters}f {str(dtype)[6:]} B={HEAD_BATCH}"
+            torch.cuda.synchronize()
+            hexconv_kernel.reset_launch_count()
+            cpu_mgr = head_net(cpu_env, filters, dtype, head)
+            if dtype == torch.float32:
+                compare_cpu(label, mgr, cpu_mgr, variables, obs, 1e-4, floor=1e-6)
+            else:
+                compare_cpu(label, mgr, cpu_mgr, variables, obs, 1e-2,
+                            f32_mgr=head_net(cpu_env, filters, torch.float32, head))
+            counts = dict(hexconv_kernel.launch_count)
+            want_fwd = convs_per_evaluation(head, 2)
+            if counts[kernel] != want_fwd or sum(counts.values()) != want_fwd:
+                raise AssertionError(f"{label}: launches {counts}, expected {want_fwd} of "
+                                     f"{kernel}")
+            # (c) one learner update (4 iterations, the progressive loss off).
+            learner = learner_for(mgr, 0.0)
+            state = TrainState(params=variables, opt_state=learner.init_opt_state(variables),
+                               step=0)
+            hexconv_kernel.reset_launch_count()
+            new, metrics = learner.train_step(state, batch)
+            torch.cuda.synchronize()
+            update = dict(hexconv_kernel.launch_count)
+            convs = convs_per_evaluation(head, TRAIN_ITERS)
+            if (update[kernel], update[dw_kernel]) != (2 * convs - 1, convs):
+                raise AssertionError(f"{label} update: launches {update}, expected "
+                                     f"{2 * convs - 1} forward + dX and {convs} dW")
+            loss = float(metrics["loss/combined"])
+            moved = max((new.params[k] - variables[k]).abs().max().item() for k in variables
+                        if k.startswith("value_head."))
+            if not (math.isfinite(loss) and moved > 0):
+                raise AssertionError(f"{label} update: loss {loss}, value head moved {moved}")
+            for name in launches:
+                launches[name] += counts[name] + update[name]
+            log(f"{label}: {want_fwd} hex-conv launches per evaluation; one update (B="
+                f"{HEAD_BATCH}, {TRAIN_ITERS} iterations) loss {loss:.4f}, {update[kernel]} "
+                f"forward + dX and {update[dw_kernel]} dW launches, the value head's largest "
+                f"step {moved:.2e}  [{card}]")
+    # (e) no TF32 in the f32 depthwise convs.
+    tf32_check()
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s; launches {launches}  [{card}]")
+    return launches
+
+
+# Phase 17: data-parallel training on the one card, ranks as subprocesses
+# over gloo (NCCL refuses two ranks on one device).  (a) is the CLI's
+# flagship training preset cut as phase 15 cuts it, at 2 ranks.
+DP_RANKS = 2
+DP_TIMEOUT = 600
+# Runs one CLI invocation as a rank of a torchrun launch does, then writes
+# the process's hex-conv launches, and for each AlphaZero.run it made the
+# SHA-256 of the returned params and the games in this rank's ring.
+DP_DRIVER = """import hashlib, json, sys
+from nuzero_tpu_torch import run
+from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+from nuzero_tpu_torch.training import pipeline
+runs = []
+run_az = pipeline.AlphaZero.run
+
+def counted(self, *args, **kwargs):
+    state = run_az(self, *args, **kwargs)
+    h = hashlib.sha256()
+    for k in sorted(state.params):
+        h.update(k.encode())
+        h.update(state.params[k].detach().cpu().contiguous().numpy().tobytes())
+    runs.append({"params": h.hexdigest(), "ring_games": self.buffer.num_games,
+                 "ring_capacity": self.buffer.capacity, "updates": state.step})
+    return state
+
+pipeline.AlphaZero.run = counted
+run.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({"launches": dict(hexconv_kernel.launch_count), "runs": runs}, f)
+"""
+# The gradient of one global batch at ``filters`` and ``dtype`` by this
+# rank of WORLD ranks over BACKEND; rank 0 saves it.
+DP_UPDATE_DRIVER = """import sys, torch
+import chip_smoke
+from nuzero_tpu_torch.parallel import make_mesh
+from nuzero_tpu_torch.parallel.distributed import initialize_distributed
+rank, world, port, backend, filters, dtype, out = sys.argv[1:8]
+initialize_distributed(f"127.0.0.1:{port}", int(world), int(rank), backend=backend)
+mesh = make_mesh("cuda:0")
+grads = chip_smoke.dp_grads(int(filters), getattr(torch, dtype), mesh)
+if int(rank) == 0:
+    torch.save({k: v.cpu() for k, v in grads.items()}, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def dp_grads(filters, dtype, mesh=None):
+    """The gradient DP_UPDATE_DRIVER takes, on the card: seeded weights, a
+    seeded global batch of 256 (the recipe's), 4 iterations, the
+    progressive loss off, by the ranks of ``mesh`` (the learner's
+    all-reduced gradient, which every rank applies) or, without one, by
+    this process alone -> the gradient."""
+    import torch
+
+    env = make_env("cuda")
+    mgr = make_net(env, filters, dtype)
+    params = mgr.init(torch.Generator(device="cuda").manual_seed(17))
+    batch = random_batch(env, TRAIN_BATCH, torch.Generator().manual_seed(17), "cuda")
+    learner = learner_for(mgr, 0.0, mesh=mesh)
+    _, _, grads = learner.value_and_grad(params, batch, None)
+    torch.cuda.synchronize()
+    return grads
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_processes(command_for, world):
+    """Start ``world`` ranks (``command_for(rank)`` -> (argv, env)) from the
+    repository's root; wait for all -> their stdout.  A non-zero exit or a
+    time-out fails, after every rank is stopped."""
+    procs = []
+    for rank in range(world):
+        argv, env = command_for(rank)
+        procs.append(subprocess.Popen(argv, cwd=REPO, env={**os.environ, **env},
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=DP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {rank} ran past {DP_TIMEOUT} s") from None
+            if proc.returncode != 0:
+                raise AssertionError(f"rank {rank} exited {proc.returncode}:\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+def dp_cli(args):
+    """The CLI with ARGS on DP_RANKS ranks of a torchrun-style launch on the
+    one card (gloo) -> each rank's (stdout, DP_DRIVER report), seconds."""
+    t0 = time.perf_counter()
+    port = free_port()
+    paths = []
+    for _ in range(DP_RANKS):
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        paths.append(path)
+
+    def command(rank):
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
+               "WORLD_SIZE": str(DP_RANKS), "LOCAL_RANK": str(rank)}
+        return ([sys.executable, "-c", DP_DRIVER, paths[rank], *args, "--dist-backend",
+                 "gloo"], env)
+
+    try:
+        outs = rank_processes(command, DP_RANKS)
+        reports = []
+        for path in paths:
+            with open(path) as f:
+                reports.append(json.load(f))
+    finally:
+        for path in paths:
+            os.remove(path)
+    return list(zip(outs, reports)), time.perf_counter() - t0
+
+
+def data_parallel_phase(card):
+    """Phase 17: data-parallel training on the one card -> the hex-conv
+    launches per kernel of rank 0's CLI runs."""
+    import torch
+
+    from nuzero_tpu_torch.config.schemas import load_training_config
+    from nuzero_tpu_torch.ops.cuda.hexconv_kernel import DW_KERNELS, KERNELS
+
+    t_phase = time.perf_counter()
+    bf16, dw16 = KERNELS[torch.bfloat16], DW_KERNELS[torch.bfloat16]
+    launches = {name: 0 for name in (*KERNELS.values(), *DW_KERNELS.values())}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "dp_flagship")
+        train, search = cli_configs(tmp)
+        cfg = load_training_config(train)
+        steps, per_step = cfg.running.training_steps, cfg.learning.num_samples
+        per_rank = cfg.running.num_actors // DP_RANKS
+        log(f"(a) {DP_RANKS} ranks (gloo, one card): " + " ".join(CLI_FLAGSHIP) + " cut as "
+            f"phase 15 cuts it, {cfg.running.num_actors} actors = {per_rank} per rank")
+        for resume in (False, True):
+            if resume:
+                train, search = cli_configs(tmp, training_steps=steps + 1, load_checkpoint=True)
+            ranks, secs = dp_cli([*CLI_FLAGSHIP, "--train-config", train, "--search-config",
+                                  search, "--name", run_dir])
+            captures, updates = (1, per_step) if resume else (2, steps * per_step)
+            want = expected_cli_launches(cfg, CLI_TRAIN_CUTS["num_simulations"], captures,
+                                         updates)
+            digests = set()
+            for rank, (out, report) in enumerate(ranks):
+                counts, (run,) = report["launches"], report["runs"]
+                if (counts[bf16], counts[dw16]) != want or counts[KERNELS[torch.float32]]:
+                    raise AssertionError(f"rank {rank} launched {counts}, expected {want} of "
+                                         f"{bf16} and {dw16}")
+                if not (0 < run["ring_games"] <= run["ring_capacity"]
+                        == cfg.learning.replay_window_size // DP_RANKS):
+                    raise AssertionError(f"rank {rank}'s ring: {run}")
+                if f"torch.distributed: rank {rank} of {DP_RANKS} (gloo) on cuda:0" not in out:
+                    raise AssertionError(f"rank {rank} did not join the group: {out[-1000:]}")
+                digests.add(run["params"])
+                log(f"(a) {'resume, ' if resume else ''}rank {rank}: params sha256 "
+                    f"{run['params'][:16]}, {run['updates']} updates, ring {run['ring_games']} "
+                    f"of {run['ring_capacity']} games, launches {counts[bf16]} forward + dX, "
+                    f"{counts[dw16]} dW (expected {want})  [{card}]")
+            if len(digests) != 1:
+                raise AssertionError(f"the ranks' params differ: {digests}")
+            for name in launches:
+                launches[name] += ranks[0][1]["launches"][name]
+            with open(os.path.join(run_dir, "journal.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            want_steps = list(range(1, steps + 1 + resume))
+            if [r["step"] for r in records] != want_steps:
+                raise AssertionError(f"journal steps {[r['step'] for r in records]}")
+            ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+            want_ckpts = ["FORMAT"] + [f"step_{s:08d}{suffix}" for s in want_steps
+                                       for suffix in (".pt", ".ring0-of-2.pt", ".ring1-of-2.pt")]
+            if ckpts != want_ckpts:
+                raise AssertionError(f"checkpoints {ckpts}")
+            for r in records[-1 if resume else 0:]:
+                log(f"(a) step {r['step']}: {r['games']} games over both ranks, buffer "
+                    f"{r['buffer_games']} games ({r['buffer_seq_per_rank']} per rank), loss "
+                    f"{r['loss/combined']:.4f}, self-play {r['time/selfplay']:.2f} s, train "
+                    f"{r['time/train']:.3f} s  [{card}]")
+            log(f"(a) {'the resume at 2 ranks' if resume else 'the run'}: {secs:.1f} s, "
+                f"params bit-equal across ranks, journal steps {want_steps} written once, "
+                f"checkpoint files {len(ckpts) - 1}  [{card}]")
+
+    dp_gradient_check(card)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
+def dp_gradient_check(card):
+    """Phase 17 (b) and (c): the data-parallel gradient against one process."""
+    import torch
+
+    # (b) the gradient of one global batch by 2 ranks and by 1.  f32: each
+    # tensor within 1e-5 of its largest entry.  bf16 rounds each rank's dW
+    # partial to bf16 before the ranks' sum (one rounding of the whole in
+    # one process), and where the halves cancel, as in the deep stem, that
+    # rounding is large beside the sum.  So bf16 is held as phase 7 holds
+    # the card against the CPU: every tensor within twice bf16's own error
+    # (the one-process bf16 gradient against the same one in f32, relative
+    # norms), and the whole gradient within 1e-2 of its largest entry.
+    for filters, dtype_name in ((64, "float32"), (256, "bfloat16")):
+        dtype = getattr(torch, dtype_name)
+        port = free_port()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "params.pt")
+            t0 = time.perf_counter()
+            rank_processes(lambda rank: ([sys.executable, "-c", DP_UPDATE_DRIVER, str(rank),
+                                          str(DP_RANKS), str(port), "gloo", str(filters),
+                                          dtype_name, out], {}), DP_RANKS)
+            secs = time.perf_counter() - t0
+            two = {k: v.float() for k, v in torch.load(out).items()}
+        one = {k: v.float().cpu() for k, v in dp_grads(filters, dtype).items()}
+        f32 = None if dtype == torch.float32 else {
+            k: v.cpu() for k, v in dp_grads(filters, torch.float32).items()}
+        top = max(v.abs().max().item() for v in one.values())
+        worst = worst_ratio = 0.0
+        for k in one:
+            err = (two[k] - one[k]).abs().max().item()
+            scale = one[k].abs().max().item() if f32 is None else top
+            worst = max(worst, err / max(scale, 1e-30))
+            if f32 is not None:
+                rel = ((two[k] - one[k]).norm() / one[k].norm().clamp(min=1e-30)).item()
+                own = ((one[k] - f32[k]).norm() / f32[k].norm().clamp(min=1e-30)).item()
+                worst_ratio = max(worst_ratio, rel / max(own, 1e-30))
+                if rel > 2 * own:
+                    raise AssertionError(f"(b) {filters}f {dtype_name} {k}: 2 ranks vs 1 "
+                                         f"{rel:.3e} of its norm, over twice bf16's own "
+                                         f"{own:.3e}")
+            tol = 1e-5 if f32 is None else 1e-2
+            if err > tol * scale:
+                raise AssertionError(f"(b) {filters}f {dtype_name} {k}: 2 ranks vs 1 differ by "
+                                     f"{err} > {tol} x {scale}")
+        log(f"(b) the gradient of one global batch of {TRAIN_BATCH} at {filters}f {dtype_name} "
+            f"({TRAIN_ITERS} iterations) by {DP_RANKS} ranks and by 1: worst {worst:.2e} of "
+            + ("each tensor's largest entry (tolerance 1e-5)" if f32 is None else
+               f"the gradient's largest entry (tolerance 1e-2), each tensor at most "
+               f"{worst_ratio:.2f}x bf16's own error")
+            + f"; the ranks' run {secs:.1f} s  [{card}]")
+
+    # (c) a one-rank NCCL group: the gradient bit-equal to no group.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "params.pt")
+        port = free_port()
+        rank_processes(lambda rank: ([sys.executable, "-c", DP_UPDATE_DRIVER, "0", "1",
+                                      str(port), "nccl", "64", "float32", out], {}), 1)
+        nccl = torch.load(out)
+    one = {k: v.cpu() for k, v in dp_grads(64, torch.float32).items()}
+    if any(not torch.equal(nccl[k], one[k]) for k in one):
+        raise AssertionError("(c) the one-rank NCCL gradient differs from the one without it")
+    log("(c) a one-rank NCCL group: the 64f f32 gradient bit-equal to the one without a "
+        "group; NCCL across cards is not run here (one card)")
+
+
 def main() -> int:
     import torch
 
@@ -2662,6 +3176,14 @@ def main() -> int:
     for entry in kernels:
         by_mode = {mode: c[entry["name"]] for mode, c in cli_counts.items() if c[entry["name"]]}
         entry["cli"] = {"launches": sum(by_mode.values()), "by_mode": by_mode}
+
+    # --- 16. the discontinued value heads
+    head_counts = heads_phase(card)
+    # --- 17. data-parallel training on the one card
+    dp_counts = data_parallel_phase(card)
+    for entry in kernels:
+        entry["heads"] = {"launches": head_counts[entry["name"]]}
+        entry["data_parallel"] = {"launches_rank0": dp_counts[entry["name"]]}
 
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

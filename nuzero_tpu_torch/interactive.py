@@ -18,8 +18,9 @@ This is a WORKING equivalent with the same flows:
 All prompts accept empty input for the shown default.  ``input_fn`` /
 ``print_fn`` are injectable for tests.  Everything the wizard launches
 runs on ``device`` (the card by default) through the port's CLI module,
-``nuzero_tpu_torch.run``, on one device: the JAX wizard's mesh over
-several devices is not ported.
+``nuzero_tpu_torch.run``; in a multi-process launch both training flows run
+data-parallel over the processes, as the JAX wizard's run on a mesh of
+every device (``parallel.mesh.default_mesh``).
 """
 
 from __future__ import annotations
@@ -254,11 +255,13 @@ class Wizard:
 
     def _launch(self, env, manager, train_path, search_path, run_dir):
         from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+        from nuzero_tpu_torch.parallel.mesh import default_mesh
         from nuzero_tpu_torch.training.pipeline import AlphaZero
 
         cfg = load_training_config(train_path)
         search = load_search_config(search_path)
-        az = AlphaZero(env, manager, cfg, search, run_dir=run_dir)
+        az = AlphaZero(env, manager, cfg, search, run_dir=run_dir,
+                       mesh=default_mesh(env.device))
         if cfg.load_checkpoint:
             state, step = az.load(cfg.checkpoint.iteration_number)
             az.run(initial_state=state, starting_step=step)
@@ -313,6 +316,7 @@ class Wizard:
         import dataclasses
 
         from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+        from nuzero_tpu_torch.parallel.mesh import default_mesh
         from nuzero_tpu_torch.training.pipeline import AlphaZero
 
         env, manager = build_from_meta(meta, REPO, device=self.device)
@@ -326,7 +330,8 @@ class Wizard:
                 ),
             )
         search = load_search_config(search_path)
-        az = AlphaZero(env, manager, cfg, search, run_dir=run_dir)
+        az = AlphaZero(env, manager, cfg, search, run_dir=run_dir,
+                       mesh=default_mesh(env.device))
         state, step = az.load(cfg.checkpoint.iteration_number)
         self.print(f"resuming {name} from step {step}")
         az.run(initial_state=state, starting_step=step)

@@ -9,7 +9,11 @@ bf16 with f32 accumulation).  Filter ramps reproduce the reference's
 
 ``BatchNorm`` is Flax's ``nn.BatchNorm`` as the JAX nets apply it outside
 training: the running mean and variance (buffers) normalize, epsilon 1e-5.
-The value heads ported are ``"reduce"`` and ``"dense"``.
+Every value head of the JAX registry (``VALUE_HEADS``) is here, the
+reference's discontinued ones (``depth``, ``combined``, ``separable``,
+``reverse``, ``rawsep``, ``strange``) included, with their per-channel
+convs: the hex depthwise conv (``ops.hexconv.hex_conv_depthwise``, plain
+PyTorch, as the JAX function is plain XLA) and grouped or 1x1 ortho convs.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from nuzero_tpu_torch.ops.hexconv import hex_conv
+from nuzero_tpu_torch.ops.hexconv import hex_conv, hex_conv_depthwise
 
 
 def _ramp(start: int, end: int, num_layers: int) -> Sequence[int]:
@@ -37,8 +41,9 @@ def _ramp(start: int, end: int, num_layers: int) -> Sequence[int]:
 def init_conv_weight_(w: torch.Tensor, generator=None) -> torch.Tensor:
     """The JAX package's conv initializer, variance_scaling(1/3, fan_in,
     uniform), in place.  Hex weights are [7, Cin, Cout] (fan_in 7*Cin),
-    ortho weights OIHW (fan_in Cin*k*k)."""
-    fan_in = w.shape[0] * w.shape[1] if w.dim() == 3 else w[0].numel()
+    hex depthwise weights [7, C] (fan_in 7), ortho weights OIHW (fan_in
+    Cin/groups*k*k)."""
+    fan_in = {2: w.shape[0], 3: w.shape[0] * w.shape[1]}.get(w.dim(), w[0].numel())
     bound = (1.0 / fan_in) ** 0.5
     with torch.no_grad():
         return w.uniform_(-bound, bound, generator=generator)
@@ -83,15 +88,18 @@ def _cudnn_without_tf32():
 
 
 class OrthoConv(nn.Module):
-    """k x k 'same' conv on NHWC activations, weight OIHW.  In f32 on the
-    card it computes in full f32 whatever the process-wide TF32 flags say."""
+    """k x k 'same' conv on NHWC activations, weight OIHW, ``groups`` as in
+    Flax's ``feature_group_count`` (a grouped 3x3 is the ortho depthwise
+    conv, a grouped 1x1 a per-channel scale).  In f32 on the card it
+    computes in full f32 whatever the process-wide TF32 flags say."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 dtype=torch.float32):
+                 dtype=torch.float32, groups: int = 1):
         super().__init__()
         self.dtype = dtype
+        self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, kernel_size, kernel_size)
+            torch.empty(features, in_features // groups, kernel_size, kernel_size)
         )
         init_conv_weight_(self.weight)
 
@@ -99,7 +107,8 @@ class OrthoConv(nn.Module):
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         full_f32 = x.is_cuda and self.dtype == torch.float32
         with _cudnn_without_tf32() if full_f32 else contextlib.nullcontext():
-            y = nn.functional.conv2d(x, self.weight.to(self.dtype), padding="same")
+            y = nn.functional.conv2d(x, self.weight.to(self.dtype), padding="same",
+                                     groups=self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -254,18 +263,223 @@ class ReducePolicyHead(nn.Module):
         return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
 
 
+class HexDepthwiseConv(nn.Module):
+    """Per-channel hexagonal conv, NHWC, weight ``[7, C]`` (ref
+    ``depthwise_conv.py:10-38``, a loop of C ``hexagdly.Conv2d(1, 1)``)."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(7, channels))
+        init_conv_weight_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hex_conv_depthwise(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class DepthwiseConv(nn.Module):
+    """Hex-or-ortho depthwise conv selector.  Ortho mode is a grouped 3x3
+    with SAME padding: the JAX package's stated deviation from the
+    reference's VALID padding, which shrinks the board (blocks.py:187-197)."""
+
+    def __init__(self, channels: int, hex: bool = True, dtype=torch.float32):
+        super().__init__()
+        if hex:
+            self.conv = HexDepthwiseConv(channels, dtype=dtype)
+        else:
+            self.conv = OrthoConv(channels, channels, 3, dtype=dtype, groups=channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def _act(name: str):
+    return {"tanh": torch.tanh, "relu": torch.relu}[name]
+
+
+def _global_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The discontinued heads' tail (ref ``AdaptiveAvgPool3d(1) -> Flatten
+    -> Tanh``): the mean over (H, W, C) of a 1-channel map, then tanh."""
+    return torch.tanh(x.mean(dim=(1, 2, 3)))
+
+
+#: The filter ramp of the discontinued heads other than depth, whatever the
+#: trunk's width (ref blocks.py:231,288,332,373,419).
+_DISCONTINUED_RAMP = (256, 64, 8, 1)
+
+
+class _DiscontinuedHead(nn.Module):
+    """What the discontinued heads share: their activation, their
+    BatchNorms in the JAX heads' call order (Flax ``BatchNorm_{i}`` ->
+    ``norms.{i}``) and the global tanh.  ``_norm_act`` applies the next
+    BatchNorm (where there is one), then the activation."""
+
+    def __init__(self, activation: str, batch_norm: bool, dtype):
+        super().__init__()
+        self.act = _act(activation)
+        self.batch_norm = batch_norm
+        self.dtype = dtype
+        self.norms = nn.ModuleList()
+
+    def _add_norm(self, features: int) -> None:
+        if self.batch_norm:
+            self.norms.append(BatchNorm(features, self.dtype))
+
+    def _norm_act(self, x: torch.Tensor, i: int):
+        if self.batch_norm:
+            x = self.norms[i](x)
+            i += 1
+        return self.act(x), i
+
+
+class DepthValueHead(_DiscontinuedHead):
+    """4 x [depthwise -> (BN) -> act], a full conv to 1 channel, global tanh
+    (ref ``Depth_ValueHead``, blocks.py:180-221)."""
+
+    def __init__(self, width: int, activation: str = "relu", batch_norm: bool = False,
+                 hex: bool = True, dtype=torch.float32):
+        super().__init__(activation, batch_norm, dtype)
+        self.depthwise = nn.ModuleList(DepthwiseConv(width, hex, dtype) for _ in range(4))
+        for _ in range(4):
+            self._add_norm(width)
+        self.convs = nn.ModuleList([Conv(width, 1, hex=hex, dtype=dtype)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = 0
+        for dw in self.depthwise:
+            x, n = self._norm_act(dw(x), n)
+        return _global_tanh(self.convs[0](x))
+
+
+class CombinedValueHead(_DiscontinuedHead):
+    """Per ramp step: depthwise -> (BN) -> act -> full conv down, then (BN)
+    -> act but after the last (ref ``Combined_ValueHead``, blocks.py:226-280)."""
+
+    def __init__(self, width: int, activation: str = "relu", batch_norm: bool = False,
+                 hex: bool = True, dtype=torch.float32):
+        super().__init__(activation, batch_norm, dtype)
+        ins = (width,) + _DISCONTINUED_RAMP[:-1]
+        self.depthwise = nn.ModuleList(DepthwiseConv(c, hex, dtype) for c in ins)
+        self.convs = nn.ModuleList(
+            Conv(c, f, hex=hex, dtype=dtype) for c, f in zip(ins, _DISCONTINUED_RAMP))
+        for c, f in zip(ins, _DISCONTINUED_RAMP):
+            self._add_norm(c)
+            if f != 1:
+                self._add_norm(f)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = 0
+        for dw, conv, f in zip(self.depthwise, self.convs, _DISCONTINUED_RAMP):
+            x, n = self._norm_act(dw(x), n)
+            x = conv(x)
+            if f != 1:
+                x, n = self._norm_act(x, n)
+        return _global_tanh(x)
+
+
+class _SeparableRamp(_DiscontinuedHead):
+    """The ramp of the separable heads: per step a per-channel conv and a
+    pointwise one in the subclass's ``order``, then (BN) -> act but after
+    the last.  ``pointwise.{i}`` are Flax's 1x1 ``nn.Conv``s."""
+
+    #: True: depthwise, then pointwise (separable, rawsep); False: the
+    #: reverse order (reverse)
+    depthwise_first = True
+    #: the depthwise convs' hex flag; None follows the head's ``hex``
+    depthwise_hex = None
+
+    def __init__(self, width: int, activation: str = "relu", batch_norm: bool = False,
+                 hex: bool = True, dtype=torch.float32):
+        super().__init__(activation, batch_norm, dtype)
+        ins = (width,) + _DISCONTINUED_RAMP[:-1]
+        dw_hex = hex if self.depthwise_hex is None else self.depthwise_hex
+        dw_widths = ins if self.depthwise_first else _DISCONTINUED_RAMP
+        self.depthwise = nn.ModuleList(DepthwiseConv(c, dw_hex, dtype) for c in dw_widths)
+        self.pointwise = nn.ModuleList(
+            OrthoConv(c, f, 1, dtype=dtype) for c, f in zip(ins, _DISCONTINUED_RAMP))
+        for f in _DISCONTINUED_RAMP[:-1]:
+            self._add_norm(f)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = 0
+        for dw, pw, f in zip(self.depthwise, self.pointwise, _DISCONTINUED_RAMP):
+            x = pw(dw(x)) if self.depthwise_first else dw(pw(x))
+            if f != 1:
+                x, n = self._norm_act(x, n)
+        return _global_tanh(x)
+
+
+class SeparableValueHead(_SeparableRamp):
+    """Depthwise-separable ramp: depthwise -> 1x1 pointwise per step (ref
+    ``Separable_ValueHead``, blocks.py:284-324)."""
+
+
+class ReverseValueHead(_SeparableRamp):
+    """Reversed separable: 1x1 pointwise down, then depthwise (ref
+    ``Reverse_ValueHead``, blocks.py:328-367)."""
+
+    depthwise_first = False
+
+
+class RawSeparableValueHead(_SeparableRamp):
+    """The separable ramp with an ORTHO 3x3 depthwise whatever ``hex`` says:
+    the reference ignores its hex flag here (ref ``RawSeparable_ValueHead``,
+    blocks.py:371-407)."""
+
+    depthwise_hex = False
+
+
+class StrangeValueHead(_DiscontinuedHead):
+    """Per ramp step a per-channel 1x1 scale (a grouped 1x1 conv,
+    ``pointwise.{i}``) then a full conv down, then (BN) -> act but after the
+    last (ref ``Strange_ValueHead``, blocks.py:411-448)."""
+
+    def __init__(self, width: int, activation: str = "relu", batch_norm: bool = False,
+                 hex: bool = True, dtype=torch.float32):
+        super().__init__(activation, batch_norm, dtype)
+        ins = (width,) + _DISCONTINUED_RAMP[:-1]
+        self.pointwise = nn.ModuleList(OrthoConv(c, c, 1, dtype=dtype, groups=c) for c in ins)
+        self.convs = nn.ModuleList(
+            Conv(c, f, hex=hex, dtype=dtype) for c, f in zip(ins, _DISCONTINUED_RAMP))
+        for f in _DISCONTINUED_RAMP[:-1]:
+            self._add_norm(f)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = 0
+        for scale, conv, f in zip(self.pointwise, self.convs, _DISCONTINUED_RAMP):
+            x = conv(scale(x))
+            if f != 1:
+                x, n = self._norm_act(x, n)
+        return _global_tanh(x)
+
+
+#: The value-head registry; keys are the reference's selector strings
+#: (ref RecurrentNet.py:58-76), as in the JAX package's ``VALUE_HEADS``.
+VALUE_HEADS = {
+    "reduce": ReduceValueHead,
+    "dense": DenseValueHead,
+    "depth": DepthValueHead,
+    "combined": CombinedValueHead,
+    "separable": SeparableValueHead,
+    "reverse": ReverseValueHead,
+    "rawsep": RawSeparableValueHead,
+    "strange": StrangeValueHead,
+}
+
+
 def make_value_head(name: str, width: int, *, activation: str = "tanh",
                     batch_norm: bool = False, hex: bool = True, dtype=torch.float32,
                     board_shape=None) -> nn.Module:
     """Value head by selector string (ref RecurrentNet.py:58-76,
-    ResNet.py:51-58).  ``board_shape`` (H, W) is needed by ``"dense"``."""
-    if name == "reduce":
-        return ReduceValueHead(width, activation=activation, batch_norm=batch_norm,
-                               hex=hex, dtype=dtype)
-    if name == "dense":
+    ResNet.py:51-58).  ``board_shape`` (H, W) is needed by ``"dense"``.  The
+    nets pass ``activation`` to every head but the dense one, so the
+    discontinued heads see "tanh" by default, as in the JAX package."""
+    try:
+        cls = VALUE_HEADS[name]
+    except KeyError:
+        raise ValueError(f"unknown value head {name!r}; options: {sorted(VALUE_HEADS)}") from None
+    if cls is DenseValueHead:
         if board_shape is None:
             raise ValueError("the dense value head needs the board_shape (H, W)")
-        return DenseValueHead(width, board_shape, batch_norm=batch_norm, hex=hex, dtype=dtype)
-    # The JAX registry's other heads (nuzero_tpu/networks/blocks.py:VALUE_HEADS)
-    # are not ported yet.
-    raise ValueError(f"value head {name!r} is not ported; options: ['dense', 'reduce']")
+        return cls(width, board_shape, batch_norm=batch_norm, hex=hex, dtype=dtype)
+    return cls(width, activation=activation, batch_norm=batch_norm, hex=hex, dtype=dtype)

@@ -8,7 +8,7 @@ The Flax names (``nuzero_tpu/networks/recurrent.py``) map one to one:
     params/Scan_RecurCell_0/Conv_0/HexConv_0/kernel      -> cell.recall.conv.weight
     params/Scan_RecurCell_0/BasicBlock_{b}/Conv_{j}/...  -> cell.blocks.{b}.conv{j+1}.conv.weight
     params/ReducePolicyHead_0/Conv_{i}/...               -> policy_head.convs.{i}.conv.weight
-    params/ReduceValueHead_0/Conv_{i}/...                -> value_head.convs.{i}.conv.weight
+    params/<Kind>ValueHead_0/...                         -> value_head.... (``_head``)
 
 ``MLPNetwork``, ``ConvNet`` and ``ResNet``: see ``mlp_state_dict``,
 ``convnet_state_dict`` and ``resnet_state_dict``.
@@ -19,6 +19,17 @@ Hex kernels are ``[7, Cin, Cout]`` on both sides.  An ortho conv
 BatchNorm's ``scale`` and ``bias`` (``params``) and ``mean`` and ``var``
 (``batch_stats``) become ``weight``, ``bias``, ``running_mean`` and
 ``running_var``.
+
+A value head is mapped by its tree, not by the order of its layers
+(``_head``).  Flax numbers a head's ``nn.Conv``s and its hex-or-ortho
+``Conv`` selectors with one counter, as both classes are named ``Conv``
+(``StrangeValueHead``: ``Conv_0`` a grouped 1x1 kernel, ``Conv_1`` a
+``HexConv_0``, alternating), so a ``Conv_{i}`` that holds a ``kernel`` of
+its own is a 1x1 ``nn.Conv`` (-> ``pointwise.{j}.weight``, the j-th such in
+``i``'s order) and one that holds a ``HexConv_0`` or ``Conv_0`` a selector
+(-> ``convs.{j}.conv.weight``).  ``DepthwiseConv_{i}`` holds a
+``HexDepthwiseConv_0`` kernel [7, C] or an ortho grouped ``Conv_0`` kernel
+[3, 3, 1, C] (-> ``depthwise.{i}.conv.weight``).
 """
 
 from __future__ import annotations
@@ -52,13 +63,17 @@ def recurrent_net_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]
     for b, block in enumerate(_numbered(cell, "BasicBlock")):
         for j, conv in enumerate(_numbered(block, "Conv")):
             out[f"cell.blocks.{b}.conv{j + 1}.conv.weight"] = _conv_weight(conv)
-    for head, name in (
-        ("ReducePolicyHead_0", "policy_head"),
-        ("ReduceValueHead_0", "value_head"),
-    ):
-        for i, conv in enumerate(_numbered(params[head], "Conv")):
-            out[f"{name}.convs.{i}.conv.weight"] = _conv_weight(conv)
+    stats = variables.get("batch_stats", {})
+    _head(out, "policy_head", params["ReducePolicyHead_0"], {})
+    value = _value_head_name(params)
+    _head(out, "value_head", params[value], stats.get(value, {}))
     return out
+
+
+def _value_head_name(params: Dict[str, Any]) -> str:
+    """The Flax name of a net's value head: ``<Kind>ValueHead_0``."""
+    (name,) = [k for k in params if k.endswith("ValueHead_0")]
+    return name
 
 
 def _dense(out: Dict[str, np.ndarray], prefix: str, node: Dict[str, Any]) -> None:
@@ -75,8 +90,9 @@ def _batch_norm(out, prefix: str, params: Dict[str, Any], stats: Dict[str, Any])
 
 
 def _head(out, prefix: str, params, stats) -> None:
-    """A reduce head's convs and BatchNorms (Flax ``Conv_{i}``,
-    ``BatchNorm_{i}``), or the dense value head."""
+    """A head's convs, 1x1 convs, depthwise convs and BatchNorms (Flax
+    ``Conv_{i}``, ``DepthwiseConv_{i}``, ``BatchNorm_{i}``; see the module's
+    docstring), or the dense value head."""
     if "Dense_0" in params:
         out[f"{prefix}.conv.conv.weight"] = _conv_weight(params["Conv_0"])
         if "BatchNorm_0" in params:
@@ -84,10 +100,25 @@ def _head(out, prefix: str, params, stats) -> None:
         _dense(out, f"{prefix}.dense1", params["Dense_0"])
         _dense(out, f"{prefix}.dense2", params["Dense_1"])
         return
-    for i, conv in enumerate(_numbered(params, "Conv")):
+    convs = _numbered(params, "Conv")
+    for i, conv in enumerate(c for c in convs if "kernel" not in c):
         out[f"{prefix}.convs.{i}.conv.weight"] = _conv_weight(conv)
+    for i, conv in enumerate(c for c in convs if "kernel" in c):
+        out[f"{prefix}.pointwise.{i}.weight"] = _conv_weight({"Conv_0": conv})
+    for i, dw in enumerate(_numbered(params, "DepthwiseConv")):
+        kernel = (np.asarray(dw["HexDepthwiseConv_0"]["kernel"], np.float32)
+                  if "HexDepthwiseConv_0" in dw else _conv_weight(dw))
+        out[f"{prefix}.depthwise.{i}.conv.weight"] = kernel
     for i, bn in enumerate(_numbered(params, "BatchNorm")):
         _batch_norm(out, f"{prefix}.norms.{i}", bn, stats[f"BatchNorm_{i}"])
+
+
+def value_head_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Convert a lone Flax value head's variables (``make_value_head(...)``
+    initialised on its own), keyed as the port's head's ``state_dict``."""
+    out = {}
+    _head(out, "head", variables["params"], variables.get("batch_stats", {}))
+    return {k[len("head."):]: v for k, v in out.items()}
 
 
 def mlp_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -134,6 +165,6 @@ def resnet_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
                         stats[f"BasicBlock_{b}"]["BatchNorm_0"])
     _head(out, "policy_head", params["ReducePolicyHead_0"],
           stats.get("ReducePolicyHead_0", {}))
-    value = "DenseValueHead_0" if "DenseValueHead_0" in params else "ReduceValueHead_0"
+    value = _value_head_name(params)
     _head(out, "value_head", params[value], stats.get(value, {}))
     return out

@@ -23,7 +23,8 @@ from torch import nn
 from torch.func import functional_call
 
 from nuzero_tpu_torch.networks.blocks import (
-    BatchNorm, Dense, HexConv, OrthoConv, init_conv_weight_, init_dense_weight_,
+    BatchNorm, Dense, HexConv, HexDepthwiseConv, OrthoConv, init_conv_weight_,
+    init_dense_weight_,
 )
 
 
@@ -32,7 +33,7 @@ def _init_parameter(module: nn.Module, name: str, p: torch.Tensor, generator):
     as Flax initializes it: conv kernels variance_scaling(1/3, fan_in,
     uniform), Dense kernels lecun_normal, biases zero, BatchNorm scales one."""
     out = torch.empty_like(p, requires_grad=False)
-    if isinstance(module, (HexConv, OrthoConv)):
+    if isinstance(module, (HexConv, HexDepthwiseConv, OrthoConv)):
         return init_conv_weight_(out, generator)
     if isinstance(module, Dense) and name == "weight":
         return init_dense_weight_(out, generator)

@@ -47,7 +47,9 @@ class RecurCell(nn.Module):
 
 class RecurrentNet(nn.Module):
     """``forward(x [B, C, H, W]) -> ((policy_logits [B, A], value [B]),
-    interim_thought [B, H, W, F])``; heads return f32."""
+    interim_thought [B, H, W, F])``; heads return f32.  ``value_head`` is
+    any key of ``blocks.VALUE_HEADS``; ``"dense"`` needs the board's
+    ``board_shape`` (H, W)."""
 
     recurrent = True
 
@@ -55,7 +57,7 @@ class RecurrentNet(nn.Module):
                  num_filters: int = 256, num_blocks: int = 2, recall: bool = True,
                  policy_head: str = "conv", value_head: str = "reduce",
                  value_activation: str = "tanh", hex: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, board_shape=None):
         super().__init__()
         if policy_head != "conv":
             raise ValueError(f"policy head {policy_head!r} unavailable")
@@ -66,7 +68,8 @@ class RecurrentNet(nn.Module):
             num_filters, policy_channels, hex=hex, dtype=dtype
         )
         self.value_head = make_value_head(
-            value_head, num_filters, activation=value_activation, hex=hex, dtype=dtype
+            value_head, num_filters, activation=value_activation, hex=hex, dtype=dtype,
+            board_shape=board_shape,
         )
 
     def forward(

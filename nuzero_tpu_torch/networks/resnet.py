@@ -1,7 +1,7 @@
 """Residual tower (counterpart of ``nuzero_tpu/networks/resnet.py``, ref
 ``Architectures/ResNet.py``): stem conv -> (BN) -> relu, ``num_blocks``
-BasicBlocks, the reduce policy head and a ``"reduce"`` or ``"dense"``
-value head.  NCHW in, NHWC inside; the heads return f32.  The dense value
+BasicBlocks, the reduce policy head and any value head of
+``blocks.VALUE_HEADS``.  NCHW in, NHWC inside; the heads return f32.  The dense value
 head needs the board's ``board_shape`` (H, W)."""
 
 from __future__ import annotations

@@ -52,6 +52,25 @@ def conv_shapes(filters: int, obs_channels: int = 86, policy_channels: int = 21,
     return shapes
 
 
+def value_head_conv_shapes(head: str, filters: int):
+    """(Cin, Cout) of the hex convs of value head ``head`` on a hex trunk
+    of ``filters`` channels, read off the head that ``make_value_head``
+    builds, in the order it holds them, which is their call order.  The
+    heads' 1x1, grouped and depthwise convs are no hex convs and launch no
+    kernel."""
+    from nuzero_tpu_torch.networks.blocks import HexConv, make_value_head
+
+    module = make_value_head(head, filters, hex=True, board_shape=(5, 5))
+    return [tuple(m.weight.shape[1:]) for m in module.modules() if isinstance(m, HexConv)]
+
+
+def convs_per_evaluation(head: str = "reduce", iterations: int = 2) -> int:
+    """Hex convs of one hex RecurrentNet evaluation (2 blocks, recall) with
+    value head ``head``: the stem, 5 per iteration, the policy ramp's 2 and
+    the head's."""
+    return 3 + 5 * iterations + len(value_head_conv_shapes(head, 64))
+
+
 def sweep_conv_shapes(iterations: int = 2):
     """(Cin, Cout, count) of one evaluation of the sweeps' nets."""
     return conv_shapes(64, obs_channels=67, policy_channels=12, iterations=iterations)

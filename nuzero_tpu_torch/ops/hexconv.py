@@ -111,6 +111,39 @@ def hex_conv_plain(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return y.reshape(B, H, W, Cout).to(out_dtype)
 
 
+def hex_conv_depthwise(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Per-channel (depthwise) hex conv of NHWC ``x`` [B, H, W, C] with
+    ``weights`` [7, C]: y[..., c] = sum_t x[nbr_t(p), c] * W[t, c], the hex
+    conv's tap order, column parity and zero off the board (counterpart of
+    ``nuzero_tpu/ops/hexconv.py:hex_conv_depthwise``, plain XLA there: no
+    hand-written kernel exists for it on either side).
+
+    A sum over the 7 taps of shifted slices of the zero-padded board, each
+    column taking its parity's shift: elementwise f32 arithmetic, so no
+    library conv (and no TF32) is involved on any device, and its backward
+    (slices, ``where``, sums) is deterministic.  bf16 inputs are computed
+    in f32 and rounded once to bf16, as the JAX function does off the TPU;
+    f64 inputs stay f64."""
+    B, H, W, C = x.shape
+    if tuple(weights.shape) != (7, C):
+        raise ValueError(f"weights {tuple(weights.shape)} != (7, {C})")
+    out_dtype = x.dtype
+    compute = torch.promote_types(x.dtype, torch.float32)
+    x, weights = x.to(compute), weights.to(compute)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))  # [B, H+2, W+2, C]
+    odd = (torch.arange(W, device=x.device) % 2 == 1).view(1, 1, W, 1)
+    even_offs, odd_offs = hex_neighbor_offsets(0), hex_neighbor_offsets(1)
+    y = None
+    for t in range(7):
+        shifted = [xp[:, 1 + dr:1 + dr + H, 1 + dc:1 + dc + W]
+                   for dr, dc in (even_offs[t], odd_offs[t])]
+        if tuple(even_offs[t]) != tuple(odd_offs[t]):
+            shifted[0] = torch.where(odd, shifted[1], shifted[0])
+        term = shifted[0] * weights[t]
+        y = term if y is None else y + term
+    return y.to(out_dtype)
+
+
 def mirror_taps(weights: torch.Tensor) -> torch.Tensor:
     """``W'[s] = W[opp(s)]^T``, ``[7, Cout, Cin]``: the weights whose hex
     conv of dY is dX."""

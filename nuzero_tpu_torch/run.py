@@ -11,9 +11,20 @@
 
 ``--device`` (default ``cuda``) chooses where everything runs; it stands in
 for the JAX package's backend choice (``JAX_PLATFORMS``).  Without a card
-the CLI stops with a message unless ``--device cpu`` is given, and a
-multi-process launch (``SLURM_NTASKS`` > 1 or ``JAX_COORDINATOR`` set) is
-refused: multi-device runs are not ported.
+the CLI stops with a message unless ``--device cpu`` is given.
+
+Several processes, one per card: under ``torchrun --nproc-per-node N -m
+nuzero_tpu_torch ...``, a SLURM job of more than one task (``slurm/launch.py
+--command "python -m nuzero_tpu_torch ..."``, or the port's own
+``nuzero_tpu_torch/slurm/launch.py``, one task per card) or with
+``JAX_COORDINATOR`` set, every process joins the process group
+(``parallel/distributed.py``) on its rank's device, ``cuda:LOCAL_RANK %
+device_count``, and training runs data-parallel over them
+(``training/pipeline.py``), as ``run.py`` trains on a mesh of every device.
+``--dist-backend`` is NCCL by default on the card and gloo on the CPU;
+ranks that share one card must pass ``--dist-backend gloo`` (NCCL refuses
+two ranks on one device).  Rank 0 alone copies the configs and writes
+``run_meta.yaml``, the journal and the checkpoint.
 
 Training presets (ref ``Run.py:92-190``): 0 Tic-Tac-Toe + MLP; 1
 Tic-Tac-Toe + RecurrentNet; 2 SCS 5x5 open field + hex RecurrentNet; 3 SCS
@@ -92,15 +103,23 @@ def _managers(env, arch: str, hex: bool = True, filters: int = None, net_dtype: 
     return NetworkManager(net.to(env.device), env.observation_shape)
 
 
-def refuse_multi_process() -> None:
-    """Stop a multi-process launch (slurm/launch.py exports JAX_COORDINATOR;
-    plain SLURM multi-task runs set SLURM_NTASKS): the JAX package wires its
-    multi-controller runtime there, and the port runs one device only."""
-    if os.environ.get("JAX_COORDINATOR") or int(os.environ.get("SLURM_NTASKS", "1") or 1) > 1:
-        raise SystemExit(
-            "nuzero_tpu_torch: a multi-process launch (SLURM_NTASKS > 1 or JAX_COORDINATOR) "
-            "needs multi-device training, which is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1 item 7); launch one process")
+def join_processes(device: torch.device, backend=None) -> torch.device:
+    """Join a multi-process launch (torchrun, SLURM, ``JAX_COORDINATOR``;
+    ``parallel.distributed.launched_multi_process``) -> this rank's device;
+    a single process keeps ``device``.  ``backend`` defaults to NCCL on the
+    card and gloo on the CPU (``run.py``'s ``_maybe_init_distributed``)."""
+    from nuzero_tpu_torch.parallel.distributed import (
+        initialize_distributed, launched_multi_process, local_device,
+    )
+
+    if not launched_multi_process():
+        return device
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    initialize_distributed(backend=backend)
+    dev = local_device(device.type)
+    print(f"torch.distributed: rank {torch.distributed.get_rank()} of "
+          f"{torch.distributed.get_world_size()} ({backend}) on {dev}")
+    return dev
 
 
 def check_device(device: str) -> torch.device:
@@ -152,21 +171,28 @@ def _train(env, manager, train_cfg_file, search_cfg_file, name=None, state_set=N
            meta=None):
     from nuzero_tpu_torch.config.run_meta import save_run_meta
     from nuzero_tpu_torch.config.schemas import load_search_config, load_training_config
+    from nuzero_tpu_torch.parallel.mesh import default_mesh
     from nuzero_tpu_torch.training.pipeline import AlphaZero
 
     train_path = os.path.join(REPO, "configs", "training", train_cfg_file)
     search_path = os.path.join(REPO, "configs", "search", search_cfg_file)
     cfg = load_training_config(train_path)
     search = load_search_config(search_path)
+    # Several processes: data-parallel over them (run.py's dp mesh).
+    mesh = default_mesh(env.device)
     run_dir = os.path.join(RUNS, name or cfg.network_name)
     os.makedirs(run_dir, exist_ok=True)
-    # Back up the configs beside the checkpoints (ref AlphaZero.py:184-187).
-    shutil.copy(train_path, os.path.join(run_dir, "train_config_copy.yaml"))
-    shutil.copy(search_path, os.path.join(run_dir, "search_config_copy.yaml"))
-    if meta:
-        # Enough to rebuild the env and the network (resume, testing, wizard).
-        save_run_meta(run_dir, **meta)
-    az = AlphaZero(env, manager, cfg, search, run_dir=run_dir, state_set=state_set)
+    if mesh is None or mesh.rank == 0:
+        if mesh is not None:
+            print(f"training on a {mesh.size}-rank data-parallel mesh")
+        # Back up the configs beside the checkpoints (ref AlphaZero.py:184-187).
+        shutil.copy(train_path, os.path.join(run_dir, "train_config_copy.yaml"))
+        shutil.copy(search_path, os.path.join(run_dir, "search_config_copy.yaml"))
+        if meta:
+            # Enough to rebuild the env and the network (resume, testing, wizard).
+            save_run_meta(run_dir, **meta)
+    az = AlphaZero(env, manager, cfg, search, run_dir=run_dir, state_set=state_set,
+                   mesh=mesh)
     if cfg.load_checkpoint:
         state, step = az.load(cfg.checkpoint.iteration_number)
         print(f"resuming from step {step} ({state.step} updates)")
@@ -417,7 +443,7 @@ def play(agent_name: str, cache: str = "disabled", device="cuda", **play_kwargs)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """``run.py``'s arguments, and ``--device``."""
+    """``run.py``'s arguments, ``--device`` and ``--dist-backend``."""
     parser = argparse.ArgumentParser(description="NuZero on PyTorch + CUDA")
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--training-preset", type=int)
@@ -450,14 +476,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="host inference cache for --play agents (ref Cache config section)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the torch device everything runs on (default cuda)")
+    parser.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                        help="the process group's backend in a multi-process launch (default "
+                        "nccl on the card, gloo on the CPU; ranks sharing a card need gloo)")
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_multi_process()
-    device = check_device(args.device)
+    device = join_processes(check_device(args.device), args.dist_backend)
+    try:
+        _run_mode(args, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
+
+def _run_mode(args, device):
     if args.training_preset is not None:
         training_preset(args.training_preset, args.name, train_cfg=args.train_config,
                         search_cfg=args.search_config, device=device, filters=args.filters,

@@ -20,6 +20,16 @@ kernels on the card) and applies optax's update rules written out:
 
 The progressive loss draws n ~ U{0..m-1}, k ~ U{1..m-n} on the host from a
 ``torch.Generator`` (``progressive_draws``); tests substitute recorded draws.
+
+Data parallel (``mesh``, ``parallel/mesh.py``): every rank is handed the
+same global batch, whose rows must divide evenly over the ranks, and
+forwards and backpropagates its own block of rows (the mesh's
+``shard_batch`` placement), its loss scaled by 1 / world size, so that the
+sum of the ranks' gradients is the global batch's mean gradient.  The gradients and the loss metrics go
+through one all-reduce of one flat buffer in the parameters' order, so
+every rank applies the same update and the parameters stay bit-equal
+across ranks.  The progressive loss's (n, k) come from the host
+generator, which every rank seeds alike.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 from torch.func import functional_call
 
 from nuzero_tpu_torch.networks.manager import NetworkManager
+from nuzero_tpu_torch.parallel.mesh import shard_batch
 from nuzero_tpu_torch.training import losses
 
 Params = Dict[str, torch.Tensor]
@@ -81,8 +92,10 @@ def global_norm(tensors) -> torch.Tensor:
 
 class Learner:
     def __init__(self, manager: NetworkManager, config: LearnerConfig,
-                 draws: Callable[[torch.Generator, int], Tuple[int, int]] = progressive_draws):
-        """The learner runs where ``manager``'s module lies.  A net with
+                 draws: Callable[[torch.Generator, int], Tuple[int, int]] = progressive_draws,
+                 mesh=None):
+        """The learner runs where ``manager``'s module lies; ``mesh`` makes
+        each update data-parallel over its ranks (see the module).  A net with
         BatchNorm is refused: the JAX learner applies it with ``train=True``
         and its ``batch_stats`` immutable, which Flax refuses
         (``ModifyScopeVariableError``), so the reference has no training
@@ -95,6 +108,7 @@ class Learner:
         self.manager = manager
         self.config = config
         self.draws = draws
+        self.mesh = mesh
         self.adam = config.optimizer != "SGD"
         # optax's piecewise_constant_schedule: one scale per distinct boundary.
         self._boundaries = sorted({int(b) for b in config.scheduler_boundaries})
@@ -170,12 +184,22 @@ class Learner:
 
     def value_and_grad(self, params: Params, batch, rng, train_iters=None):
         """(combined loss, (value loss, policy loss), grads) of one batch
-        (obs, policy_target, value_target, game_type)."""
+        (obs, policy_target, value_target, game_type).  With a mesh,
+        ``batch`` is the global batch (the same on every rank), each rank
+        differentiates its block of rows, and the losses and grads returned
+        are the global batch's, summed over the ranks."""
+        if self.mesh is not None:
+            batch = self._rank_rows(batch)
         obs, policy_target, value_target, _ = batch
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         c_l, (v_l, p_l) = self._forward_loss(
             leaves, obs, policy_target, value_target, rng, train_iters)
-        return c_l, (v_l, p_l), self._grads(c_l, leaves)
+        if self.mesh is None:
+            return c_l, (v_l, p_l), self._grads(c_l, leaves)
+        share = 1.0 / self.mesh.size
+        grads = self._grads(c_l * share, leaves)
+        (c_l, v_l, p_l), grads = self.all_reduce((c_l * share, v_l * share, p_l * share), grads)
+        return c_l, (v_l, p_l), grads
 
     # -- update ---------------------------------------------------------------
 
@@ -209,9 +233,30 @@ class Learner:
             new_opt = {"schedule_count": opt["schedule_count"] + 1, "trace": trace}
         return TrainState(params=params, opt_state=new_opt, step=state.step + 1)
 
+    # -- data parallel ----------------------------------------------------------
+
+    def _rank_rows(self, batch):
+        """This rank's block of a global batch's rows."""
+        return tuple(map(shard_batch(self.mesh).place, batch))
+
+    def all_reduce(self, scalars, grads: Params):
+        """Sum ``scalars`` (loss tensors) and ``grads`` over the ranks in one
+        all-reduce of one flat f32 buffer, in the parameters' order."""
+        keys = list(grads)
+        flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                         + [torch.stack([s.detach().float() for s in scalars])])
+        self.mesh.all_reduce(flat)
+        out, at = {}, 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].view_as(grads[k])
+            at += n
+        return list(flat[at:].unbind()), out
+
     def train_step(self, state: TrainState, batch, rng: Optional[torch.Generator] = None):
         """One SGD update on ``batch`` = (obs, policy_target, value_target,
-        game_type); ``rng`` feeds the progressive loss's draws."""
+        game_type); ``rng`` feeds the progressive loss's draws.  With a
+        mesh, ``batch`` is the global batch (the same on every rank)."""
         c_l, (v_l, p_l), grads = self.value_and_grad(state.params, batch, rng)
         metrics = {
             "loss/value": v_l.detach(),
@@ -224,23 +269,32 @@ class Learner:
     def train_step_multi(self, state: TrainState, batches, rng: Optional[torch.Generator] = None):
         """One SGD update over per-game-type sub-batches, each forwarded at
         its own recurrent iteration count; the losses are weighted by each
-        type's positions, plus ``loss/type{t}`` per type."""
+        type's positions, plus ``loss/type{t}`` per type.  With a mesh each
+        sub-batch is global and each rank forwards its block of each."""
         iters = self.config.train_iterations_per_type or tuple(
             self.config.train_iterations for _ in batches)
         leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         tot_c = tot_v = tot_p = 0.0
         n = 0
         per_type = {}
-        for t, (obs, pt, vt, _) in enumerate(batches):
+        for t, batch in enumerate(batches):
+            size = batch[0].shape[0]
+            if self.mesh is not None:
+                batch = self._rank_rows(batch)
+            obs, pt, vt, _ = batch
             c_l, (v_l, p_l) = self._forward_loss(leaves, obs, pt, vt, rng, train_iters=iters[t])
             b = obs.shape[0]
             tot_c = tot_c + c_l * b
             tot_v = tot_v + v_l * b
             tot_p = tot_p + p_l * b
-            n += b
-            per_type[f"loss/type{t}"] = c_l.detach()
+            n += size
+            per_type[f"loss/type{t}"] = c_l.detach() * (b / size)
         c_l, v_l, p_l = tot_c / n, tot_v / n, tot_p / n
         grads = self._grads(c_l, leaves)
+        if self.mesh is not None:
+            keys = list(per_type)
+            reduced, grads = self.all_reduce((c_l, v_l, p_l, *per_type.values()), grads)
+            (c_l, v_l, p_l), per_type = reduced[:3], dict(zip(keys, reduced[3:]))
         metrics = {
             "loss/value": v_l.detach(),
             "loss/policy": p_l.detach(),

@@ -48,7 +48,24 @@ buffer truncated to the journal's ``buffer_seq`` at the restored step
 (``load_buffer_at_step``); where there is none, it warns and goes on with
 the empty buffer.
 
-Not ported yet, and refused with ``NotImplementedError``: a mesh.
+Data parallel (``mesh``, ``parallel/mesh.py``): one process per card over
+``torch.distributed``, where the JAX coordinator runs one SPMD program over
+a ``dp`` mesh of devices.  Rank r plays ``num_actors / N`` games from a
+self-play generator of its own, into a ring of ``replay_window_size / N``
+games of its own (``training/replay.py``); the parameters start from rank
+0's and stay bit-equal, as every rank applies the same all-reduced update
+(``training/learner.py``) to the same global batch, sampled over all the
+rings, each forwarding an equal block of it (so every per-type batch must
+divide over the ranks).  A move-batch's (finished, overflow) pair is summed over the ranks
+when the host reads it, ``PIPELINE_DEPTH`` late, so every rank launches the
+same number of move-batches and the early fill's and a step's game targets
+are global, as in JAX.  The journal (``games`` and ``buffer_*`` global),
+plots, probes, weight stats and in-loop tests run on rank 0, which writes
+the checkpoint's params and optimizer state once; each rank writes its own
+ring beside it (``utils/checkpoint.py``).  ``NUZERO_MFU`` is off across
+processes, and the asynchronous mode is refused there, as in JAX: its
+wall-clock exit can differ across ranks, which then launch different
+numbers of collectives.  A one-rank mesh runs bit-equal to no mesh.
 """
 
 from __future__ import annotations
@@ -78,7 +95,10 @@ from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, TrainState
 from nuzero_tpu_torch.training.selfplay import (
     capture_selfplay_step, init_selfplay, make_selfplay_step, play_in_place,
 )
-from nuzero_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from nuzero_tpu_torch.parallel.mesh import place_replicated
+from nuzero_tpu_torch.utils.checkpoint import (
+    latest_step, restore_checkpoint, restore_ring, save_checkpoint,
+)
 from nuzero_tpu_torch.utils.metrics import MetricsJournal
 from nuzero_tpu_torch.utils.packing import make_packer
 from nuzero_tpu_torch.utils.plots import plot_training_run
@@ -109,9 +129,17 @@ def learner_config_from_training(cfg: TrainingConfig, num_game_types: int = 1) -
     )
 
 
+def sub_batch_sizes(batch_size: int, num_types: int) -> list:
+    """Per-type sub-batch sizes summing to ``batch_size``, the remainder
+    spread over the first types."""
+    T = num_types
+    return [batch_size // T + (1 if t < batch_size % T else 0) for t in range(T)]
+
+
 def unported_options(mesh=None) -> list:
-    """The options of the JAX coordinator that the port does not run yet."""
-    return ["mesh"] if mesh is not None else []
+    """The options of the JAX coordinator that the port does not run: none
+    since the mesh (kept so that a caller can ask)."""
+    return []
 
 
 class AlphaZero:
@@ -139,11 +167,9 @@ class AlphaZero:
         tests: called every ``policy_test_frequency`` steps, its metrics go
         into the step's record.  ``state_set`` holds probe observations
         ``[N, *observation_shape]`` whose values are journaled every
-        ``plot_frequency`` steps."""
-        missing = unported_options(mesh)
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch pipeline yet: " + ", ".join(missing))
+        ``plot_frequency`` steps.  ``mesh`` (``parallel.make_mesh``) makes
+        the run data-parallel over its ranks (see the module); the envs and
+        the network lie on the mesh's device."""
         envs = list(env) if isinstance(env, (list, tuple)) else [env]
         base = envs[0]
         for e in envs[1:]:
@@ -152,24 +178,57 @@ class AlphaZero:
                 raise ValueError("all game types must share observation and action shapes "
                                  "(one network serves every type)")
         running = train_config.running
+        self.mesh = mesh
+        if mesh is not None:
+            if running.num_actors % mesh.size:
+                raise ValueError(f"num_actors={running.num_actors} must divide the mesh size "
+                                 f"{mesh.size}")
+            if train_config.learning.replay_window_size % mesh.size:
+                raise ValueError(
+                    f"replay_window_size={train_config.learning.replay_window_size}"
+                    f" must divide the mesh size {mesh.size}")
+            # Each rank forwards an equal block of every (per-type) batch.
+            learning = train_config.learning
+            size = (learning.batch_size if learning.learning_method == "samples"
+                    else learning.epochs_batch_size)
+            subs = sub_batch_sizes(size, len(envs))
+            if any(n % mesh.size for n in subs):
+                raise ValueError(f"batch size {size} over {len(envs)} game type(s) gives "
+                                 f"batches of {subs}; each must divide the mesh size "
+                                 f"{mesh.size}")
         if running.running_mode == "sequential" and running.num_games_per_type_per_step < 1:
             raise ValueError(
                 "sequential running_mode requires num_games_per_type_per_step >= 1")
+        # Several processes (the JAX coordinator's multi-controller run;
+        # here every multi-rank mesh): host-side IO on rank 0 only.
+        self._multiprocess = mesh is not None and mesh.size > 1
+        self._rank0 = mesh is None or mesh.rank == 0
+        if self._multiprocess and running.running_mode == "asynchronous":
+            # Each rank's loop exits on its own wall clock, while every
+            # move-batch's settle is a collective: ranks that launch
+            # different numbers of batches deadlock.
+            raise ValueError(
+                "running_mode 'asynchronous' is single-process only: its "
+                "wall-clock loop exit can diverge across hosts while every "
+                "self-play step is a cross-process collective. Use "
+                "running_mode 'sequential' for multi-host runs.")
         self.envs = envs
         # The env of the in-loop tests and the probes (ref test_game_index).
         self.env = envs[min(train_config.testing.test_game_index, len(envs) - 1)]
         self.device = base.device
+        self._world = 1 if mesh is None else mesh.size
         self.manager = manager
         self.cfg = train_config
         self.search_params = search_params
         self.run_dir = run_dir
         self.journal = MetricsJournal(
-            os.path.join(run_dir, "journal.jsonl") if run_dir else None)
+            os.path.join(run_dir, "journal.jsonl") if run_dir else None, write=self._rank0)
         if train_config.cache.cache_choice not in ("disabled", "none"):
             print("note: Cache.cache_choice is obsolete on this runtime (self-play "
                   "leaf inference is batched on the device); ignoring")
 
-        self.learner = Learner(manager, learner_config_from_training(train_config, len(envs)))
+        self.learner = Learner(manager, learner_config_from_training(train_config, len(envs)),
+                               mesh=mesh)
         pi = train_config.recurrent.pred_iterations
 
         def make_net(pred_iters: int):
@@ -204,8 +263,9 @@ class AlphaZero:
         self.state_dim = max(dim for _, dim in self._unpackers)
         self.trajectory_length = (
             running.max_trajectory_length or max(e.max_game_length for e in envs))
+        # With a mesh, each rank's ring holds its share of the window.
         self.buffer = replay_lib.create_buffer(
-            train_config.learning.replay_window_size, self.trajectory_length,
+            train_config.learning.replay_window_size // self._world, self.trajectory_length,
             self.state_dim, base.num_actions, device=self.device,
         )
         self.state_set = (None if state_set is None else
@@ -259,11 +319,11 @@ class AlphaZero:
         where given) with its observations."""
         enc, pol, val, gt = replay_lib.sample(
             self.buffer, rng, batch_size, late_heavy=late_heavy,
-            with_replacement=with_replacement, game_type=game_type)
+            with_replacement=with_replacement, game_type=game_type, mesh=self.mesh)
         return self._observe(enc, game_type or 0), pol, val, gt
 
     def _gather_obs(self, idx, game_type: int = 0):
-        enc, pol, val, gt = replay_lib.gather(self.buffer, idx)
+        enc, pol, val, gt = replay_lib.gather(self.buffer, idx, self.mesh)
         return self._observe(enc, game_type), pol, val, gt
 
     def _mover(self, step_fn, sp, params):
@@ -296,10 +356,11 @@ class AlphaZero:
                                     overflow.to(torch.int64)]))
         return stats
 
-    @staticmethod
-    def _settle(counts) -> int:
-        """The finished count of a queued move-batch; raises where one of
-        its bounded loops overflowed."""
+    def _settle(self, counts) -> int:
+        """The finished count of a queued move-batch, over every rank; raises
+        where one of its bounded loops overflowed on any rank."""
+        if self.mesh is not None:
+            counts = self.mesh.all_reduce(counts)
         n, overflow = counts.tolist()
         if overflow:
             raise OverflowError("self-play: a loop bounded for the move's CUDA graph "
@@ -355,17 +416,33 @@ class AlphaZero:
             games += self._settle(counts)
         return games, stats
 
+    def _buffer_counts(self):
+        """(games held by each rank's ring, positions held in all, insertions
+        into each rank's ring) -> ([int], int, [int]); one all-gather with a
+        mesh."""
+        b = self.buffer
+        row = torch.stack([b.games_added.clamp(max=b.capacity),
+                           b.length.sum().to(torch.int64), b.games_added]).reshape(1, 3)
+        rows = (row if self.mesh is None else self.mesh.all_gather(row)).tolist()
+        return [r[0] for r in rows], sum(r[1] for r in rows), [r[2] for r in rows]
+
+    def _global_means(self, stats: dict) -> dict:
+        """A move-batch's float stats averaged over the ranks: every rank
+        plays as many games, so the mean of the ranks' means is the mean
+        over the global batch, as the JAX coordinator's stats are."""
+        keys = [k for k, v in stats.items()
+                if isinstance(v, torch.Tensor) and v.dim() == 0 and v.is_floating_point()]
+        if not keys:
+            return stats
+        means = self.mesh.all_reduce(torch.stack([stats[k].float() for k in keys]))
+        return {**stats, **dict(zip(keys, (means / self.mesh.size).unbind()))}
+
     def _update(self, state: TrainState, batches):
         """One SGD update: a single batch for one game type, or one
         sub-batch per type forwarded at its own recurrent iteration count."""
         if len(batches) == 1:
             return self.learner.train_step(state, batches[0], self._host_rng)
         return self.learner.train_step_multi(state, batches, self._host_rng)
-
-    def _sub_sizes(self, batch_size: int) -> list:
-        """Per-type sub-batch sizes summing to ``batch_size``."""
-        T = len(self.envs)
-        return [batch_size // T + (1 if t < batch_size % T else 0) for t in range(T)]
 
     def _train_once(self, state: TrainState):
         cfg = self.cfg.learning
@@ -377,16 +454,14 @@ class AlphaZero:
                 batches = [
                     self._sample_obs(self._rng, n, late_heavy=cfg.late_heavy,
                                      with_replacement=cfg.with_replacement, game_type=gt)
-                    for gt, n in zip(types, self._sub_sizes(cfg.batch_size))]
+                    for gt, n in zip(types, sub_batch_sizes(cfg.batch_size, T))]
                 state, metrics = self._update(state, batches)
         elif cfg.learning_method == "epochs":
             # Shuffle and sweep (ref AlphaZero.py:686-737): each epoch permutes
             # each type's valid positions once and slices full batches in
             # order; the remainder is dropped.
-            sub = self._sub_sizes(cfg.epochs_batch_size)
-            n_pos = ([int(self.buffer.num_positions)] if T == 1 else
-                     [int(torch.where(self.buffer.game_type == t, self.buffer.length, 0).sum())
-                      for t in range(T)])
+            sub = sub_batch_sizes(cfg.epochs_batch_size, T)
+            n_pos = [replay_lib.num_positions(self.buffer, self.mesh, gt) for gt in types]
             if any(s > n for s, n in zip(sub, n_pos)):
                 raise ValueError("Batch size too large; use early_fill to pre-fill "
                                  "the replay buffer (ref AlphaZero.py:690-693)")
@@ -396,7 +471,8 @@ class AlphaZero:
             # update replaces, and its record copies only loss/type* keys
             # (nuzero_tpu/training/pipeline.py:499-504,815-817).
             for _ in range(cfg.learning_epochs):
-                perms = [replay_lib.epoch_permutation(self.buffer, self._rng, game_type=gt)
+                perms = [replay_lib.epoch_permutation(self.buffer, self._rng, game_type=gt,
+                                                      mesh=self.mesh)
                          for gt in types]
                 for b in range(n_batches):
                     batches = [self._gather_obs(perm[b * s:(b + 1) * s], t)
@@ -450,7 +526,7 @@ class AlphaZero:
         """Render the training plot set from the journal into
         ``run_dir/plots`` (ref plot rendering, ``AlphaZero.py:963-1179``)
         -> the written paths."""
-        if self.run_dir is None:
+        if self.run_dir is None or not self._rank0:
             return []
         records = self.journal.load()
         if not records:
@@ -557,28 +633,40 @@ class AlphaZero:
         self._host_rng = torch.Generator().manual_seed(seed)  # progressive (n, k)
         init_rng = torch.Generator(device=dev).manual_seed(seed + 1)
         state = initial_state or self.learner.init_state(init_rng)
+        # Rank r plays num_actors / N games from a generator of its own;
+        # rank 0 keeps the seeds of a run without a mesh.
+        rank = 0 if self.mesh is None else self.mesh.rank
         sps = [
-            init_selfplay(e, cfg.running.num_actors,
-                          torch.Generator(device=dev).manual_seed(seed + 2 + t),
+            init_selfplay(e, cfg.running.num_actors // self._world,
+                          torch.Generator(device=dev).manual_seed(seed + 2 + t + T * rank),
                           self.trajectory_length, search_params=self.search_params,
                           state_dim=self.state_dim)
             for t, e in enumerate(self.envs)
         ]
+        if self.mesh is not None:
+            # Rank 0's parameters and optimizer state on every rank.
+            state = dataclasses.replace(
+                state, params=place_replicated(state.params, self.mesh),
+                opt_state=place_replicated(state.opt_state, self.mesh))
 
         if cfg.running.early_fill_per_type > 0 and starting_step == 0:
             t0 = time.time()
-            bar = PrintBar("early fill", T * cfg.running.early_fill_per_type)
+            bar = (PrintBar("early fill", T * cfg.running.early_fill_per_type)
+                   if self._rank0 else None)
             total = 0
             for t in range(T):
                 n, _ = self._selfplay_until(
                     state, sps[t], self.sp_steps_early[t], cfg.running.early_fill_per_type,
-                    progress=bar.next)
+                    progress=bar.next if bar else None)
                 total += n
-            bar.finish()
-            print(f"early fill: {total} games in {time.time() - t0:.1f}s "
-                  f"({int(self.buffer.num_positions)} positions)")
+            n_pos = replay_lib.num_positions(self.buffer, self.mesh)
+            if bar:
+                bar.finish()
+                print(f"early fill: {total} games in {time.time() - t0:.1f}s "
+                      f"({n_pos} positions)")
 
-        if cfg.testing.early_testing and starting_step == 0 and self.test_hook is None:
+        if (cfg.testing.early_testing and starting_step == 0 and self.test_hook is None
+                and self._rank0):
             # Baseline eval before any update (ref early_testing).
             res = self._run_inloop_tests(state, 0)
             if res:
@@ -587,13 +675,13 @@ class AlphaZero:
         sequential = cfg.running.running_mode == "sequential"
         timers = PhaseTimers(dev)
         train_flops = None
-        if os.environ.get("NUZERO_MFU"):
+        if os.environ.get("NUZERO_MFU") and not self._multiprocess:
             try:
                 train_flops = self.train_flops(state.params)
             except Exception as exc:  # as in the JAX coordinator: MFU is optional
                 warnings.warn(f"NUZERO_MFU: the FLOP count failed ({exc!r}); "
                               "train_flops_per_s is not journaled", stacklevel=2)
-        trace_dir = os.environ.get("NUZERO_TRACE_DIR")
+        trace_dir = os.environ.get("NUZERO_TRACE_DIR") if self._rank0 else None
         trace_at = starting_step + 2
         for step in range(starting_step + 1, cfg.running.training_steps + 1):
             t0 = time.time()
@@ -615,14 +703,19 @@ class AlphaZero:
             with timers.phase("train"):
                 state, tr_metrics = self._train_once(state)
 
+            buffer_games, buffer_positions, buffer_seq = self._buffer_counts()
+            if self.mesh is not None:
+                sp_stats = self._global_means(sp_stats)
+                per_type_stats = {t: (g, self._global_means(st))
+                                  for t, (g, st) in per_type_stats.items()}
             record = {
                 "step": step,
                 "games": games,
-                "buffer_games": self.buffer.num_games,
-                "buffer_positions": int(self.buffer.num_positions),
+                "buffer_games": sum(buffer_games),
+                "buffer_positions": buffer_positions,
                 # Insertion count at this step (the step_to_size_map equivalent
                 # for partial buffer loads, ref ReplayBuffer.py:64-104).
-                "buffer_seq": int(self.buffer.games_added),
+                "buffer_seq": sum(buffer_seq),
                 "updates": state.step,
                 "loss/combined": float(tr_metrics.get("loss/combined", np.nan)),
                 "loss/policy": float(tr_metrics.get("loss/policy", np.nan)),
@@ -638,6 +731,10 @@ class AlphaZero:
                 record["selfplay/env_steps_per_s"] = round(
                     self._sp_batches * cfg.running.num_actors
                     * self.search_params.num_simulations / sp_time)
+            if self._multiprocess:
+                # Each rank's insertion count: its ring's truncation point
+                # for load_buffer_at_step.
+                record["buffer_seq_per_rank"] = buffer_seq
             for k, v in tr_metrics.items():
                 if k.startswith("loss/type"):
                     record[k] = float(v)
@@ -655,13 +752,13 @@ class AlphaZero:
             with timers.phase("eval"):
                 if self.test_hook is not None:
                     freq = cfg.testing.policy_test_frequency
-                    if freq and step % freq == 0:
+                    if self._rank0 and freq and step % freq == 0:
                         record.update(self.test_hook(state, step) or {})
-                else:
+                elif self._rank0:
                     record.update(self._run_inloop_tests(state, step))
                 self._harvest_async_tests()
 
-            if step % cfg.plotting.plot_frequency == 0:
+            if step % cfg.plotting.plot_frequency == 0 and self._rank0:
                 if self.state_set is not None:
                     record.update({f"value_probe/{i}": v
                                    for i, v in enumerate(self.probe_values(state.params))})
@@ -684,9 +781,14 @@ class AlphaZero:
                 with timers.phase("checkpoint"):
                     tree = {"params": state.params, "opt_state": state.opt_state,
                             "step": state.step}
-                    if cfg.saving.save_buffer:
-                        tree["buffer"] = replay_lib.to_tree(self.buffer)
-                    save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
+                    ring = replay_lib.to_tree(self.buffer) if cfg.saving.save_buffer else None
+                    if self._multiprocess:
+                        save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree,
+                                        mesh=self.mesh, ring=ring)
+                    else:
+                        if ring is not None:
+                            tree["buffer"] = ring
+                        save_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, tree)
                 # The plots ride the checkpoint cadence, off the hot loop.
                 self.render_plots()
         self._harvest_async_tests(block=True)
@@ -713,13 +815,25 @@ class AlphaZero:
     def _restore(self, step, with_buffer: bool):
         """The checkpoint tree at ``step`` ('auto' = latest), its shapes held
         to this coordinator's (the buffer's only ``with_buffer``) ->
-        (tree, step)."""
+        (tree, step).  Across processes the buffer is this rank's ring, read
+        from its own file; a checkpoint that holds no buffer has none."""
+        root = os.path.join(self.run_dir, "checkpoints")
         template = self.learner.init_state(torch.Generator(device=self.device).manual_seed(0))
         target = {"params": template.params, "opt_state": template.opt_state, "step": 0}
-        if with_buffer:
-            target["buffer"] = replay_lib.to_tree(self.buffer)
-        return restore_checkpoint(os.path.join(self.run_dir, "checkpoints"), step, target,
-                                  device=self.device)
+        ring = replay_lib.to_tree(self.buffer)
+        if with_buffer and not self._multiprocess:
+            target["buffer"] = ring
+        tree, step = restore_checkpoint(root, step, target, device=self.device)
+        if self._multiprocess:
+            tree.pop("buffer", None)  # a one-process run's whole buffer
+            saved = tree.get("world_size", 1)
+            if with_buffer and saved != self.mesh.size:
+                raise ValueError(f"the checkpoint of step {step} was written by {saved} "
+                                 f"rank(s); its replay buffer resumes at that world size "
+                                 f"only, not at {self.mesh.size}")
+            if with_buffer:
+                tree["buffer"] = restore_ring(root, step, self.mesh, ring, device=self.device)
+        return tree, step
 
     def load_buffer_at_step(self, step: int) -> bool:
         """Restore the replay buffer to its state at training step ``step``
@@ -733,13 +847,16 @@ class AlphaZero:
         newest = latest_step(os.path.join(self.run_dir, "checkpoints"))
         if newest is None:
             return False
-        seq_at_step = next((r["buffer_seq"] for r in self.journal.load()
-                            if r.get("step") == step and "buffer_seq" in r), None)
+        key = "buffer_seq_per_rank" if self._multiprocess else "buffer_seq"
+        seq_at_step = next((r[key] for r in self.journal.load()
+                            if r.get("step") == step and key in r), None)
+        if self._multiprocess and seq_at_step is not None:
+            seq_at_step = seq_at_step[self.mesh.rank]
         if seq_at_step is None:
             return False
         try:
             tree, _ = self._restore(newest, with_buffer=True)
-        except ValueError:  # the saved buffer's shape is not this buffer's
+        except (ValueError, FileNotFoundError):  # no buffer of this shape and world size
             return False
         if tree.get("buffer") is None:
             return False
@@ -780,5 +897,7 @@ class AlphaZero:
                            step=0 if ckpt.fresh_start else tree["step"])
         if ckpt.fresh_start:
             step = 0
+        if self._multiprocess:
+            self.mesh.barrier()  # every rank has read the journal
         self.journal.truncate_to_step(0 if ckpt.new_plots else step)
         return state, step

@@ -17,6 +17,18 @@ tensors and ``add_games`` reads nothing on the host, so that self-play can
 run ahead of the host; a checkpoint holds them as plain integers
 (``to_tree``; ``ReplayBuffer(**tree)`` reads it back).  Random draws come from an explicit
 ``torch.Generator`` on the buffer's device.
+
+Data parallel (``mesh``): each rank holds a ring of ``replay_window_size /
+N`` games, written by its own self-play, and evicts its own oldest game.
+This is a deviation from the JAX package, whose one ring sharded over the
+mesh evicts the mesh's oldest game; reproducing that would take a
+collective and a cross-rank copy after every move-batch.  Sampling keeps
+the JAX semantics: the ranks' slots form one global slot space (rank r's
+ring after rank r-1's), every rank draws the same global flat indices from
+a generator seeded alike on every rank, over the all-gathered position
+weights, and each rank contributes the rows it owns to one SUM all-reduce
+that assembles the global batch on every rank (``gather``).  The
+late-heavy ramp ranks a game within its own ring.
 """
 
 from __future__ import annotations
@@ -185,31 +197,55 @@ def position_weights(buffer: ReplayBuffer, late_heavy: bool) -> torch.Tensor:
     return torch.where(valid, w[:, None], 0.0)
 
 
-def epoch_permutation(buffer: ReplayBuffer, rng: torch.Generator, game_type=None):
+def num_positions(buffer: ReplayBuffer, mesh=None, game_type=None) -> int:
+    """Valid positions held (of ``game_type`` where given), over every rank's
+    ring with a mesh; reads the count on the host."""
+    n = buffer.length if game_type is None else torch.where(
+        buffer.game_type == game_type, buffer.length, 0)
+    n = n.sum().to(torch.int64).reshape(1)
+    return int(n[0] if mesh is None else mesh.all_reduce(n)[0])
+
+
+def epoch_permutation(buffer: ReplayBuffer, rng: torch.Generator, game_type=None, mesh=None):
     """i64[G*L] flat position indices, every valid position first in
     uniform-random order (invalid slots after): slicing the first
     ``n_batches * batch_size`` visits each valid position at most once.
-    ``game_type`` restricts validity to one type's positions."""
+    ``game_type`` restricts validity to one type's positions.  With a mesh
+    the indices run over the global slot space (every rank's ring), the
+    same on every rank."""
     valid = _valid(buffer)
     if game_type is not None:
         valid = valid & (buffer.game_type == game_type)[:, None]
+    if mesh is not None:
+        valid = mesh.all_gather(valid.to(torch.uint8)).bool()
     valid = valid.reshape(-1)
     key = torch.rand(valid.shape, generator=rng, device=valid.device)
     key = key + torch.where(valid, 0.0, 2.0)
     return torch.argsort(key, stable=True)
 
 
-def gather(buffer: ReplayBuffer, flat_idx: torch.Tensor):
+def gather(buffer: ReplayBuffer, flat_idx: torch.Tensor, mesh=None):
     """Positions by flat (game, position) index -> (states [N, D], policy
-    [N, A], value [N], game_type [N])."""
+    [N, A], value [N], game_type [N]).  With a mesh the indices are global
+    and every rank gets every row: each fills the rows it owns, zeros the
+    rest, and one SUM all-reduce of the rows packed in one f32 buffer adds
+    them up (a row and zeros: exact)."""
     L = buffer.value.shape[1]
+    mine = None
+    if mesh is not None:
+        mine, local = mesh.owned(flat_idx, buffer.capacity * L)
+        flat_idx = torch.where(mine, local, 0)
     gi, pi = flat_idx // L, flat_idx % L
-    return (
-        buffer.states[gi, pi],
-        buffer.policy[gi, pi],
-        buffer.value[gi, pi],
-        buffer.game_type[gi],
-    )
+    rows = (buffer.states[gi, pi], buffer.policy[gi, pi], buffer.value[gi, pi],
+            buffer.game_type[gi])
+    if mesh is None:
+        return rows
+    widths = [r[0].numel() for r in rows]
+    packed = torch.cat([r.reshape(len(flat_idx), -1).float() for r in rows], dim=1)
+    packed = mesh.all_reduce(torch.where(mine[:, None], packed, 0.0))
+    states, policy, value, game_type = packed.split(widths, dim=1)
+    return (states, policy, value[:, 0],
+            game_type[:, 0].to(buffer.game_type.dtype))
 
 
 def sample(
@@ -220,14 +256,18 @@ def sample(
     late_heavy: bool = False,
     with_replacement: bool = True,
     game_type=None,
+    mesh=None,
 ):
     """A training batch of positions -> (states [B, D] packed, policy
     [B, A], value [B], game_type [B]).  With replacement a categorical draw
     over the weights; without, Gumbel top-k.  ``game_type`` restricts the
-    draw to one game type's positions."""
+    draw to one game type's positions.  With a mesh the draw runs over the
+    ranks' all-gathered weights and every rank gets the global batch."""
     w = position_weights(buffer, late_heavy)
     if game_type is not None:
         w = w * (buffer.game_type == game_type)[:, None]
+    if mesh is not None:
+        w = mesh.all_gather(w)
     w = w.reshape(-1)
     if with_replacement:
         flat = torch.multinomial(w, batch_size, replacement=True, generator=rng)
@@ -236,4 +276,4 @@ def sample(
         tiny = torch.finfo(torch.float32).tiny
         u = torch.rand(w.shape, generator=rng, device=w.device).clamp(min=tiny)
         flat = torch.topk(logw - torch.log(-torch.log(u)), batch_size).indices
-    return gather(buffer, flat)
+    return gather(buffer, flat, mesh)

@@ -7,6 +7,14 @@ the replay buffer) at ``<root>/step_<step>.pt``, with ``'auto'`` discovery
 of the latest step.  A ``FORMAT`` file beside them carries the tree-layout
 version; a restore of another version, or of a tree whose leaf shapes
 differ from the caller's target, fails with a message naming the leaves.
+
+A data-parallel run (``parallel/mesh.py``) writes a step's checkpoint once:
+every rank writes its own replay ring to ``step_<step>.ring<r>-of-<N>.pt``,
+then rank 0 alone writes the params, the optimizer state and the update
+count, with ``world_size`` N, to ``step_<step>.pt``, after every ring.  A
+resume at the same world size reads each rank's ring back
+(``restore_ring``); the params and optimizer state restore in one process
+as any checkpoint's do.
 """
 
 from __future__ import annotations
@@ -30,14 +38,36 @@ def _format_path(root: str) -> str:
     return os.path.join(os.path.abspath(root), "FORMAT")
 
 
-def save_checkpoint(root: str, step: int, tree: Any) -> str:
-    os.makedirs(root, exist_ok=True)
-    path = _ckpt_path(root, step)
+def ring_path(root: str, step: int, rank: int, world_size: int) -> str:
+    """Where rank ``rank`` of ``world_size`` keeps its replay ring of ``step``."""
+    return os.path.join(os.path.abspath(root),
+                        f"step_{step:08d}.ring{rank}-of-{world_size}.pt")
+
+
+def _write(path: str, tree: Any) -> None:
     tmp = path + ".tmp"
     torch.save(tree, tmp)
     os.replace(tmp, path)
-    with open(_format_path(root), "w") as f:
-        f.write(f"{FORMAT_VERSION}\n")
+
+
+def save_checkpoint(root: str, step: int, tree: Any, mesh=None, ring: Any = None) -> str:
+    """Write ``tree`` as the checkpoint of ``step`` -> its path.  With a
+    ``mesh``, every rank calls this with its own replay ``ring`` (or None):
+    each writes its ring, and after every rank has, rank 0 alone writes
+    ``tree`` with ``world_size``; every rank returns once it is written."""
+    os.makedirs(root, exist_ok=True)
+    path = _ckpt_path(root, step)
+    if mesh is not None:
+        if ring is not None:
+            _write(ring_path(root, step, mesh.rank, mesh.size), ring)
+        mesh.barrier()
+        tree = {**tree, "world_size": mesh.size}
+    if mesh is None or mesh.rank == 0:
+        _write(path, tree)
+        with open(_format_path(root), "w") as f:
+            f.write(f"{FORMAT_VERSION}\n")
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -80,6 +110,23 @@ def restore_checkpoint(root: str, step: int | str = "auto", target: Any = None,
                 f"{saved_fmt}; this build reads version {FORMAT_VERSION}. "
                 "Re-train or convert the run."
             )
+    return _load(path, target, device), int(step)
+
+
+def restore_ring(root: str, step: int, mesh, target: Any = None, device="cuda"):
+    """Rank ``mesh.rank``'s replay ring of ``step``, written by a run of
+    ``mesh.size`` ranks, onto ``device``; held to ``target``'s shapes as
+    ``restore_checkpoint`` holds a tree.  A ring of another world size is
+    refused."""
+    path = ring_path(root, int(step), mesh.rank, mesh.size)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no replay ring of rank {mesh.rank} of {mesh.size} at step {step} under {root} "
+            "(a data-parallel run resumes its buffer at the world size that wrote it)")
+    return _load(path, target, device)
+
+
+def _load(path: str, target, device):
     tree = torch.load(path, map_location="cpu", weights_only=True)
     if target is not None:
         saved, want = _shapes(tree), _shapes(target)
@@ -93,7 +140,7 @@ def restore_checkpoint(root: str, step: int | str = "auto", target: Any = None,
                 + "; ".join(mismatches[:8])
                 + (f" (+{len(mismatches) - 8} more)" if len(mismatches) > 8 else "")
             )
-    return _to(tree, device), int(step)
+    return _to(tree, device)
 
 
 def _to(tree, device):

@@ -7,10 +7,13 @@ cpu``; the rest in-process: ``--debug 0`` and ``--debug 1`` print what
 ``np.random.default_rng(0)``); ``print_tree`` on the same search (the JAX
 MLP's weights converted, no root noise) equals JAX's dump; a preset-0 run
 cut to one step writes the same files and ``run_meta.yaml`` keys as
-``run.py``, and testing preset 0 reads it back; the refusals (no card, an Orbax run, a multi-process launch).
+``run.py``, and testing preset 0 reads it back; the refusals (no card, an
+Orbax run); two processes launched as torchrun and as SLURM launch them,
+which join one process group and train data-parallel.
 Every comparison here is exact.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -200,12 +203,122 @@ def test_refuses_an_orbax_run(tmp_path, monkeypatch):
     assert runner.resolve_run("mine") == str(tmp_path / "mine")
 
 
-@pytest.mark.parametrize("env", [{"SLURM_NTASKS": "2"}, {"JAX_COORDINATOR": "host:1234"}])
-def test_refuses_a_multi_process_launch(env, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match="multi-device.*not ported"):
-        runner.main(["--device", "cpu", "--debug", "0"])
+# Runs ``run.main(ARGS)`` as ``python -m nuzero_tpu_torch ARGS`` does, and
+# records which files the process copied or wrote as the run's (configs,
+# run_meta, journal records, checkpoints), into the file named first.
+LAUNCH_DRIVER = """import json, shutil, sys
+import torch
+torch.set_num_threads(1)
+from nuzero_tpu_torch import run
+from nuzero_tpu_torch.config import run_meta
+from nuzero_tpu_torch.utils import checkpoint, metrics
+writes = []
+
+def recorded(name, fn):
+    def wrapper(*args, **kwargs):
+        writes.append(name)
+        return fn(*args, **kwargs)
+    return wrapper
+
+shutil.copy = recorded("config copy", shutil.copy)
+run_meta.save_run_meta = recorded("run_meta", run_meta.save_run_meta)
+checkpoint._write = recorded("checkpoint file", checkpoint._write)
+append = metrics.MetricsJournal.append
+metrics.MetricsJournal.append = lambda self, record: (
+    writes.append("journal") if self.write else None) or append(self, record)
+run.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump(writes, f)
+"""
+
+
+# The variables of the launchers the CLI reads.
+LAUNCH_KEYS = {"MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK", "SLURM_PROCID",
+               "SLURM_NTASKS", "SLURM_LOCALID", "JAX_COORDINATOR"}
+
+
+def _launch_configs(tmp_path):
+    """``ttt_default.yaml`` and ``ttt_search.yaml`` cut to two steps of 8
+    actors, 4 simulations, no in-loop tests, a checkpoint at step 2."""
+    from nuzero_tpu_torch.config.yaml_io import load_yaml, save_yaml
+
+    train = load_yaml(os.path.join(REPO, "configs", "training", "ttt_default.yaml"))
+    train["Running"].update(num_actors=8, early_fill_per_type=4, training_steps=2)
+    train["Running"]["Sequential"]["num_games_per_type_per_step"] = 2
+    train["Saving"]["save_frequency"] = 2
+    train["Testing"].update(early_testing=False, policy_test_frequency=0,
+                            mcts_test_frequency=0, asynchronous_testing=False)
+    train["Plotting"]["plot_loss"] = False
+    train["Learning"]["replay_window_size"] = 16
+    train["Learning"]["Samples"].update(batch_size=8, num_samples=1)
+    search = load_yaml(os.path.join(REPO, "configs", "search", "ttt_search.yaml"))
+    search["Simulation"]["mcts_simulations"] = 4
+    paths = str(tmp_path / "train.yaml"), str(tmp_path / "search.yaml")
+    save_yaml(train, paths[0])
+    save_yaml(search, paths[1])
+    return paths
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("launcher", ["torchrun", "slurm"])
+def test_joins_a_multi_process_launch(launcher, tmp_path):
+    """Two CLI processes with the environment torchrun (MASTER_ADDR,
+    MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK) or a SLURM job of two tasks
+    (SLURM_PROCID, SLURM_NTASKS, SLURM_LOCALID, JAX_COORDINATOR) gives them
+    join one gloo group and train TTT preset 0 data-parallel: rank 0 alone
+    copies the configs and writes run_meta, the journal and the checkpoint's
+    main file; each rank writes its own replay ring."""
+    train, search = _launch_configs(tmp_path)
+    run_dir = str(tmp_path / "run")
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        if launcher == "torchrun":
+            env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
+                   "WORLD_SIZE": "2", "LOCAL_RANK": str(rank)}
+        else:
+            env = {"SLURM_PROCID": str(rank), "SLURM_NTASKS": "2", "SLURM_LOCALID": str(rank),
+                   "JAX_COORDINATOR": f"127.0.0.1:{port}"}
+        inherited = {k: v for k, v in os.environ.items() if k not in LAUNCH_KEYS}
+        env = dict(inherited, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="", **env)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", LAUNCH_DRIVER, str(tmp_path / f"rank{rank}.json"),
+             "--device", "cpu", "--training-preset", "0", "--train-config", train,
+             "--search-config", search, "--name", run_dir],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{out[-3000:]}"
+        assert f"torch.distributed: rank {rank} of 2 (gloo) on cpu" in out
+    writes = []
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.json") as f:
+            writes.append(json.load(f))
+    assert sorted(writes[0]) == sorted(["config copy"] * 2 + ["run_meta"] + ["journal"] * 2
+                                       + ["checkpoint file"] * 2)
+    assert writes[1] == ["checkpoint file"]
+    assert sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) == [
+        "FORMAT", "step_00000002.pt", "step_00000002.ring0-of-2.pt",
+        "step_00000002.ring1-of-2.pt"]
+    with open(os.path.join(run_dir, "journal.jsonl")) as f:
+        assert [json.loads(line)["step"] for line in f] == [1, 2]
+    assert "training on a 2-rank data-parallel mesh" in outs[0]
 
 
 def test_refuses_to_run_without_a_card(monkeypatch):
@@ -223,3 +336,23 @@ def test_play_with_a_cache_reaches_the_end(capsys):
     out = capsys.readouterr().out
     assert value in (-1.0, 0.0, 1.0) and "game over" in out
     assert "keyless cache: hit ratio 0.000 (0 hits," in out
+
+
+def test_slurm_launch_renders_one_task_per_card():
+    """The port's SLURM launcher (``--dry-run``): one task per card, each
+    running ``python -m nuzero_tpu_torch`` with the given arguments, and
+    the rendezvous the tasks read."""
+    r = subprocess.run([sys.executable, os.path.join(REPO, "nuzero_tpu_torch", "slurm",
+                                                     "launch.py"),
+                        "--dry-run", "--job-name", "j", "--num-nodes", "2",
+                        "--gpus-per-node", "4", "--args", "--training-preset 2 --filters 256"],
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.strip().split("\n")
+    for want in ("#SBATCH --nodes=2", "#SBATCH --ntasks-per-node=4",
+                 "#SBATCH --gpus-per-node=4", "#SBATCH --job-name=j"):
+        assert want in lines
+    assert 'export JAX_COORDINATOR="${head_node}:8476"' in lines
+    assert lines[-1] == ("srun --kill-on-bad-exit=1 python -m nuzero_tpu_torch "
+                         "--training-preset 2 --filters 256")
+    assert "${" not in r.stdout.replace("${head_node}", "")

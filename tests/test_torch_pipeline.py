@@ -137,9 +137,9 @@ def test_epochs_sweep_each_position_at_most_once(tmp_path, monkeypatch):
     seen = []
     gather = pipeline.replay_lib.gather
 
-    def spy(buffer, idx):
+    def spy(buffer, idx, mesh=None):
         seen.append((idx.tolist(), buffer.length.clone()))
-        return gather(buffer, idx)
+        return gather(buffer, idx, mesh)
 
     monkeypatch.setattr(pipeline.replay_lib, "gather", spy)
     cfg = _config(steps=1, learning=LearningConfig(
@@ -198,13 +198,17 @@ def _jax_record_keys(cfg, run_dir):
 
 
 
-@pytest.mark.parametrize("name,kwargs", [("mesh", dict(mesh=object()))])
-def test_unported_arguments_raise(name, kwargs):
-    """A mesh is the one option of the JAX coordinator the port refuses."""
-    with pytest.raises(NotImplementedError, match=name):
-        _coordinator(None, _config(), **kwargs)
+def test_a_mesh_is_accepted():
+    """Every option of the JAX coordinator runs on the port, a mesh too: a
+    one-rank mesh builds a coordinator whose ring holds the whole window."""
+    from nuzero_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(rank=0, size=1, device=torch.device("cpu"))
     assert pipeline.unported_options() == []
-    assert pipeline.unported_options(**kwargs) == [name]
+    assert pipeline.unported_options(mesh=mesh) == []
+    az = _coordinator(None, _config(), mesh=mesh)
+    assert az.mesh is mesh and az.learner.mesh is mesh
+    assert az.buffer.capacity == az.cfg.learning.replay_window_size
 
 
 def test_shipped_scs_recipe_is_accepted_with_plots_and_a_state_set():

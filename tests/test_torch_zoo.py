@@ -209,12 +209,14 @@ def test_learner_refuses_a_batch_norm_net():
 
 def test_value_heads_and_policy_heads():
     """``make_value_head`` builds "reduce" and "dense" (the dense one needs
-    the board shape), refuses the unported heads, and an unknown ResNet
-    policy head raises as in JAX."""
+    the board shape) and the discontinued heads (held against JAX in
+    ``tests/test_torch_value_heads.py``), refuses an unknown head, and an
+    unknown ResNet policy head raises as in JAX."""
     assert make_value_head("dense", 8, board_shape=(3, 3)).dense1.weight.shape == (256, 288)
     with pytest.raises(ValueError, match="board_shape"):
         make_value_head("dense", 8)
-    with pytest.raises(ValueError, match="not ported"):
-        make_value_head("depth", 8)
+    assert make_value_head("depth", 8).depthwise[0].conv.weight.shape == (7, 8)
+    with pytest.raises(ValueError, match="unknown value head 'nope'"):
+        make_value_head("nope", 8)
     with pytest.raises(ValueError, match="unavailable"):
         ResNet(2, 1, num_filters=8, policy_head="dense")
