@@ -1,0 +1,7 @@
+"""The selfplay window's share of the card's peak, in % (``harness.mfu_pct``)."""
+
+from cardbench import harness
+
+
+def read(ctx):
+    return harness.mfu_pct(ctx)
