@@ -130,8 +130,8 @@ The DeepThinking transfer path:
    sizes x 3 iteration counts x 64 games, layouts drawn per game), each
    point within 3 standard deviations of the two samples plus 1/64 of the
    committed rate and the mean within 3 standard errors; every arena action
-   legal, the launches of every evaluation, seconds per arena move per
-   point; then a ``randomize_vp`` self-play leg (64f f32, B=512,
+   legal, the launches of every evaluation, the mean seconds per arena
+   move of each sweep; then a ``randomize_vp`` self-play leg (64f f32, B=512,
    ``solo_scout_5.yml``): four eager moves after ``RVP_LEG``'s warm-up,
    then the captured move's four replays under sync debug mode "error",
    each equal bit for bit, recycled games on new layouts.
@@ -1529,6 +1529,7 @@ def transfer_check(card):
     from nuzero_tpu_torch.ops.cuda import hexconv_kernel
     from nuzero_tpu_torch.ops.cuda.measure import SWEEP_ITERS, SWEEP_SIZES
     from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
+    from nuzero_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     kernel = hexconv_kernel.KERNELS[torch.float32]
@@ -1603,9 +1604,10 @@ def transfer_check(card):
         torch.cuda.synchronize()
         hexconv_kernel.reset_launch_count()
         t0 = time.perf_counter()
+        moves = profiling.snapshot().get("nuzero.arena.move", {"calls": 0, "total_s": 0.0})
         with CountingApply() as calls, CheckedSteps() as steps, \
                 tempfile.TemporaryDirectory() as out:
-            record, seconds = fn(run, out_dir=out, games=SWEEP_GAMES, device="cuda", **kwargs)
+            record = fn(run, out_dir=out, games=SWEEP_GAMES, device="cuda", **kwargs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             with open(os.path.join(out, os.listdir(out)[0])) as f:
@@ -1617,9 +1619,12 @@ def transfer_check(card):
             raise AssertionError(f"{label} {run}: {count} hex-conv launches for "
                                  f"{len(calls.iters)} evaluations, expected {want}")
         launches += count
+        after = profiling.snapshot()["nuzero.arena.move"]
+        moved, secs = after["calls"] - moves["calls"], after["total_s"] - moves["total_s"]
         log(f"{label} {run}: {len(calls.iters)} PolicyAgent evaluations, {count} "
-            f"hex-conv launches, {steps.checked} actions checked legal, {wall:.2f} s  [{card}]")
-        return record, seconds
+            f"hex-conv launches, {steps.checked} actions checked legal, {moved} arena moves, "
+            f"{secs / moved:.4f} s per arena move (mean), {wall:.2f} s  [{card}]")
+        return record
 
     def outcomes(point):
         counts = [point[k] * SWEEP_GAMES for k in ("p0_wr", "p1_wr", "draw_rate")]
@@ -1630,19 +1635,19 @@ def transfer_check(card):
     scenario = sweeps.load_scenario(sweeps.SCENARIO, seed=42)
     curves = {}
     for run in ITERATION_RUNS:
-        record, seconds = sweep(sweeps.iteration_sweep, run, "iteration sweep")
+        record = sweep(sweeps.iteration_sweep, run, "iteration sweep")
         curves[run] = record
         # The port's plain path on the CPU, 2 games a point: every game of a
         # point is the same game (an argmax policy, seat 0 never moves).
-        cpu, _ = sweeps.iteration_sweep(run, games=2, device="cpu")
+        cpu = sweeps.iteration_sweep(run, games=2, device="cpu")
         committed = committed_json(run, "iteration_sweep.json")
         if record["checkpoint_step"] != committed["checkpoint_step"] or not (
                 len(record["results"]) == len(cpu["results"]) == len(committed["results"])):
             raise AssertionError(f"{run}: checkpoint step or points differ from the committed")
         env = sweeps.SCSGame(scenario, device="cuda")
         flipped = []
-        for point, on_cpu, want, secs in zip(record["results"], cpu["results"],
-                                             committed["results"], seconds):
+        for point, on_cpu, want in zip(record["results"], cpu["results"],
+                                       committed["results"]):
             outcomes(point)
             iters = point["iterations"]
             ref = on_cpu if (run, iters) in CPU_DIFFERS_FROM_COMMITTED else want
@@ -1651,22 +1656,21 @@ def transfer_check(card):
                 f"(CPU {on_cpu['p1_wr']:.4f}, committed {want['p1_wr']:.4f}"
                 + (", held to the CPU" if ref is on_cpu else "") + f"), draws "
                 f"{point['draw_rate']:.4f}; smallest legal top-2 logit margin {margin:.4e} "
-                f"(move {move}); {len(secs)} arena moves, {statistics.median(secs):.4f} s "
-                f"per arena move (median)  [{card}]")
+                f"(move {move})  [{card}]")
             if point["p1_wr"] != on_cpu["p1_wr"] or any(point[k] != ref[k] for k in ref):
                 flipped.append(iters)
         if flipped:
             raise AssertionError(f"{run}: the iteration curve differs at {flipped} (see the "
                                  f"margins above)")
 
-    record, seconds = sweep(sweeps.size_sweep, SIZE_RUN, "size sweep")
+    record = sweep(sweeps.size_sweep, SIZE_RUN, "size sweep")
     committed = committed_json(SIZE_RUN, "size_sweep.json")
     for key in ("checkpoint_step", "train_size", "turn_rule"):
         if record[key] != committed[key]:
             raise AssertionError(f"size sweep: {key} {record[key]} != {committed[key]}")
     if record["curves"].keys() != committed["curves"].keys():
         raise AssertionError(f"size sweep curves {list(record['curves'])}")
-    diffs, variances, i = [], [], 0
+    diffs, variances = [], []
     n = SWEEP_GAMES
     for label, points in record["curves"].items():
         for point, want in zip(points, committed["curves"][label]):
@@ -1675,13 +1679,9 @@ def transfer_check(card):
             pooled = (got + ref) / 2
             sd = math.sqrt(pooled * (1 - pooled) * (2 / n))
             bound = 3 * sd + 1 / n
-            secs = seconds[i]
-            i += 1
             log(f"size sweep {SIZE_RUN} {label} at {point['board_size']}x{point['board_size']}:"
                 f" P2 {got:.4f} (committed {ref:.4f}, |diff| {abs(got - ref):.4f} <= "
-                f"{bound:.4f}?), draws {point['draw_rate']:.4f}; {len(secs)} arena moves, "
-                f"{statistics.median(secs):.4f} s per arena move (median), "
-                f"{sum(secs):.2f} s  [{card}]")
+                f"{bound:.4f}?), draws {point['draw_rate']:.4f}  [{card}]")
             if point["board_size"] != want["board_size"] or abs(got - ref) > bound:
                 raise AssertionError(f"size sweep {label} at {point['board_size']}: P2 {got} "
                                      f"against the committed {ref}, bound {bound:.4f}")

@@ -6,8 +6,14 @@ policy chooses an action in every game, finished games freeze, and the
 host loops until all games are terminal or ``max_moves`` is reached.  A
 seat's policy runs only when some live game has that seat on move (the
 JAX arena's ``lax.cond``); the two seat flags and ``done.all()`` come to
-the host in one read per move.  Games cut by ``max_moves`` count as
-draws and are reported as truncated.
+the host in one read per move, at its end, for the move after it.  Games
+cut by ``max_moves`` count as draws and are reported as truncated.
+
+Each move is the span ``nuzero.arena.move`` (``utils/profiling.py``; its
+duration is ``Arena.seconds_per_move``), with the children
+``nuzero.arena.policy`` (each seat's policy call, tagged with the seat),
+``nuzero.arena.env`` (the env's step, the frozen games' select, the
+lengths and the terminal flags) and ``nuzero.arena.read`` (the host read).
 
 The initial states come from ``env.init`` with the match's generator, so
 an env with per-game victory points (SCS ``randomize_vp``) draws each
@@ -21,12 +27,12 @@ not reproduced, as in the JAX package).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import torch
 
 from nuzero_tpu_torch.envs.base import select_state
+from nuzero_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -69,7 +75,7 @@ class Arena:
         self.p0_policy = p0_policy
         self.p1_policy = p1_policy
         self.draws = draws
-        self.seconds_per_move: list = []  # host wall time of each move of the last play
+        self.seconds_per_move: list = []  # each move's span of the last play, in seconds
         # f32[B] of the last play: each game's terminal value (+1 = player 0
         # won), 0 where it was cut by max_moves.
         self.outcomes: Optional[torch.Tensor] = None
@@ -88,25 +94,38 @@ class Arena:
         lengths = torch.zeros(num_games, dtype=torch.int32, device=env.device)
         done = env.terminal(states)
         zeros = torch.zeros(num_games, dtype=torch.int32, device=env.device)
+
+        def read():
+            """(player, whether seat 0 / seat 1 has a live game on move,
+            whether every game is over): one host read."""
+            with span("nuzero.arena.read"):
+                player = env.current_player(states)
+                return player, *torch.stack(
+                    [((player == 0) & ~done).any(), ((player == 1) & ~done).any(), done.all()]
+                ).tolist()
+
         self.seconds_per_move = []
+        player, live0, live1, all_done = read()
         for move in range(max_moves):
-            t0 = time.perf_counter()
-            player = env.current_player(states)
-            live0, live1, all_done = torch.stack(
-                [((player == 0) & ~done).any(), ((player == 1) & ~done).any(), done.all()]
-            ).tolist()
             if all_done:
                 break
-            r0, r1 = self.draws(rng, move)
-            a0 = self.p0_policy(p0_variables, states, lengths, r0).to(torch.int32) \
-                if live0 else zeros
-            a1 = self.p1_policy(p1_variables, states, lengths, r1).to(torch.int32) \
-                if live1 else zeros
-            action = torch.where(player == 0, a0, a1)
-            states = select_state(done, states, env.step(states, action))
-            lengths = torch.where(done, lengths, lengths + 1)
-            done = env.terminal(states)
-            self.seconds_per_move.append(time.perf_counter() - t0)
+            with span("nuzero.arena.move", move) as timed:
+                r0, r1 = self.draws(rng, move)
+                a0 = a1 = zeros
+                if live0:
+                    with span("nuzero.arena.policy", 0):
+                        a0 = self.p0_policy(p0_variables, states, lengths, r0).to(torch.int32)
+                if live1:
+                    with span("nuzero.arena.policy", 1):
+                        a1 = self.p1_policy(p1_variables, states, lengths, r1).to(torch.int32)
+                with span("nuzero.arena.env"):
+                    action = torch.where(player == 0, a0, a1)
+                    states = select_state(done, states, env.step(states, action))
+                    lengths = torch.where(done, lengths, lengths + 1)
+                    done = env.terminal(states)
+                if move + 1 < max_moves:
+                    player, live0, live1, all_done = read()
+            self.seconds_per_move.append(timed.seconds)
 
         values = env.terminal_value(states)
         self.outcomes = torch.where(done, values, torch.zeros_like(values))

@@ -92,20 +92,6 @@ def policy_test(run_name: str, parameter: str, first: int, last: int, step: int,
     }
 
 
-class TimedTestManager(TestManager):
-    """A ``TestManager`` that keeps the host seconds of every arena move of
-    each batch it plays (``batch_seconds``, one list per batch)."""
-
-    def __init__(self, env):
-        super().__init__(env)
-        self.batch_seconds: list = []
-
-    def run_test_batch(self, *args, **kwargs):
-        stats = super().run_test_batch(*args, **kwargs)
-        self.batch_seconds.append(list(self.last_arena.seconds_per_move))
-        return stats
-
-
 def _evenly(values: Iterable[int]):
     """(first, last, step) of an evenly spaced, increasing sequence."""
     values = list(values)
@@ -134,11 +120,10 @@ def _write(record: dict, out_dir: Optional[str], name: str) -> None:
 def iteration_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] = None,
                     iterations: Iterable[int] = range(2, 21, 2), games: int = 64,
                     seed: int = 0, device="cuda"):
-    """Preset 2 -> (the ``iteration_sweep.json`` record, the seconds of each
-    arena move of each point)."""
+    """Preset 2 -> the ``iteration_sweep.json`` record."""
     manager, step = _run(run_name, game_dir, device)
     env = SCSGame(load_scenario(SCENARIO, seed=42), device=device)
-    tm = TimedTestManager(env)
+    tm = TestManager(env)
     results = tm.test_from_config(
         policy_test(run_name, "iterations", *_evenly(iterations), games),
         manager=manager, game_dir=game_dir, seed=seed)
@@ -152,18 +137,17 @@ def iteration_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[s
         plot_iteration_sweep(
             results, os.path.join(out_dir, "iteration_sweep.png"),
             title=f"{run_name} step {step}: win rate vs recurrent iterations", seat=1)
-    return record, tm.batch_seconds
+    return record
 
 
 def size_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] = None,
                sizes: Iterable[int] = range(5, 16, 2), iterations: Iterable[int] = (2, 6, 24),
                games: int = 64, seed: int = 0, device="cuda"):
-    """Preset 3 -> (the ``size_sweep.json`` record, the seconds of each arena
-    move of each point, curve by curve)."""
+    """Preset 3 -> the ``size_sweep.json`` record."""
     manager, step = _run(run_name, game_dir, device)
-    curves, raw, seconds = {}, {}, []
+    curves, raw = {}, {}
     for iters in iterations:
-        tm = TimedTestManager(size_env(BASE_SIZE, device))
+        tm = TestManager(size_env(BASE_SIZE, device))
         results = tm.test_from_config(
             policy_test(run_name, "board_size", *_evenly(sizes), games, iterations=iters),
             manager=manager, game_dir=game_dir, seed=seed,
@@ -172,7 +156,6 @@ def size_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] =
         curves[f"{iters} iterations"] = [
             {"board_size": v, "p0_wr": wr[0], "p1_wr": wr[1], "draw_rate": wr[2]}
             for v, wr in results]
-        seconds += tm.batch_seconds
     record = {"checkpoint_step": step, "train_size": BASE_SIZE, "turn_rule": TURN_RULE,
               "curves": curves}
     _write(record, out_dir, "size_sweep.json")
@@ -181,7 +164,7 @@ def size_sweep(run_name: str, game_dir: str = GAME_DIR, out_dir: Optional[str] =
             raw, os.path.join(out_dir, "size_sweep.png"),
             title=f"{run_name} step {step}: 5x5-trained scout vs board size", seat=1,
             train_size=BASE_SIZE)
-    return record, seconds
+    return record
 
 
 def main(argv=None) -> None:
@@ -194,7 +177,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     sweep = iteration_sweep if args.preset == 2 else size_sweep
-    record, _ = sweep(args.name, args.game_dir, args.out, games=args.games, device=args.device)
+    record = sweep(args.name, args.game_dir, args.out, games=args.games, device=args.device)
     print(json.dumps(record))
 
 

@@ -282,12 +282,12 @@ def testing_preset(idx: int, name, device="cuda"):
         out_dir = _results_dir(run_name, run_dir)
         game_dir, base = os.path.dirname(run_dir), os.path.basename(run_dir)
         if idx == 2:
-            record, _ = sweeps.iteration_sweep(base, game_dir, out_dir, device=device)
+            record = sweeps.iteration_sweep(base, game_dir, out_dir, device=device)
             print([(r["iterations"], (r["p0_wr"], r["p1_wr"], r["draw_rate"]))
                    for r in record["results"]])
             print(f"sweep written to {os.path.join(out_dir, 'iteration_sweep.json')}")
         else:
-            record, _ = sweeps.size_sweep(base, game_dir, out_dir, device=device)
+            record = sweeps.size_sweep(base, game_dir, out_dir, device=device)
             print(f"size sweep written to {os.path.join(out_dir, 'size_sweep.json')}")
         return record
     raise SystemExit(f"unknown testing preset {idx}")

@@ -44,6 +44,7 @@ from torch.func import functional_call
 from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.parallel.mesh import shard_batch
 from nuzero_tpu_torch.training import losses
+from nuzero_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -192,14 +193,17 @@ class Learner:
             batch = self._rank_rows(batch)
         obs, policy_target, value_target, _ = batch
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        c_l, (v_l, p_l) = self._forward_loss(
-            leaves, obs, policy_target, value_target, rng, train_iters)
-        if self.mesh is None:
-            return c_l, (v_l, p_l), self._grads(c_l, leaves)
-        share = 1.0 / self.mesh.size
-        grads = self._grads(c_l * share, leaves)
-        (c_l, v_l, p_l), grads = self.all_reduce((c_l * share, v_l * share, p_l * share), grads)
-        return c_l, (v_l, p_l), grads
+        with span("nuzero.learner.forward"):
+            c_l, (v_l, p_l) = self._forward_loss(
+                leaves, obs, policy_target, value_target, rng, train_iters)
+        with span("nuzero.learner.backward"):
+            if self.mesh is None:
+                return c_l, (v_l, p_l), self._grads(c_l, leaves)
+            share = 1.0 / self.mesh.size
+            grads = self._grads(c_l * share, leaves)
+            (c_l, v_l, p_l), grads = self.all_reduce(
+                (c_l * share, v_l * share, p_l * share), grads)
+            return c_l, (v_l, p_l), grads
 
     # -- update ---------------------------------------------------------------
 
@@ -257,49 +261,56 @@ class Learner:
         """One SGD update on ``batch`` = (obs, policy_target, value_target,
         game_type); ``rng`` feeds the progressive loss's draws.  With a
         mesh, ``batch`` is the global batch (the same on every rank)."""
-        c_l, (v_l, p_l), grads = self.value_and_grad(state.params, batch, rng)
-        metrics = {
-            "loss/value": v_l.detach(),
-            "loss/policy": p_l.detach(),
-            "loss/combined": c_l.detach(),
-            "grad_norm": global_norm(grads.values()),
-        }
-        return self.apply_gradients(state, grads), metrics
+        with span("nuzero.learner.update"):
+            c_l, (v_l, p_l), grads = self.value_and_grad(state.params, batch, rng)
+            metrics = {
+                "loss/value": v_l.detach(),
+                "loss/policy": p_l.detach(),
+                "loss/combined": c_l.detach(),
+                "grad_norm": global_norm(grads.values()),
+            }
+            with span("nuzero.learner.optimizer"):
+                return self.apply_gradients(state, grads), metrics
 
     def train_step_multi(self, state: TrainState, batches, rng: Optional[torch.Generator] = None):
         """One SGD update over per-game-type sub-batches, each forwarded at
         its own recurrent iteration count; the losses are weighted by each
         type's positions, plus ``loss/type{t}`` per type.  With a mesh each
         sub-batch is global and each rank forwards its block of each."""
-        iters = self.config.train_iterations_per_type or tuple(
-            self.config.train_iterations for _ in batches)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        tot_c = tot_v = tot_p = 0.0
-        n = 0
-        per_type = {}
-        for t, batch in enumerate(batches):
-            size = batch[0].shape[0]
-            if self.mesh is not None:
-                batch = self._rank_rows(batch)
-            obs, pt, vt, _ = batch
-            c_l, (v_l, p_l) = self._forward_loss(leaves, obs, pt, vt, rng, train_iters=iters[t])
-            b = obs.shape[0]
-            tot_c = tot_c + c_l * b
-            tot_v = tot_v + v_l * b
-            tot_p = tot_p + p_l * b
-            n += size
-            per_type[f"loss/type{t}"] = c_l.detach() * (b / size)
-        c_l, v_l, p_l = tot_c / n, tot_v / n, tot_p / n
-        grads = self._grads(c_l, leaves)
-        if self.mesh is not None:
-            keys = list(per_type)
-            reduced, grads = self.all_reduce((c_l, v_l, p_l, *per_type.values()), grads)
-            (c_l, v_l, p_l), per_type = reduced[:3], dict(zip(keys, reduced[3:]))
-        metrics = {
-            "loss/value": v_l.detach(),
-            "loss/policy": p_l.detach(),
-            "loss/combined": c_l.detach(),
-            "grad_norm": global_norm(grads.values()),
-            **per_type,
-        }
-        return self.apply_gradients(state, grads), metrics
+        with span("nuzero.learner.update"):
+            iters = self.config.train_iterations_per_type or tuple(
+                self.config.train_iterations for _ in batches)
+            leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            tot_c = tot_v = tot_p = 0.0
+            n = 0
+            per_type = {}
+            for t, batch in enumerate(batches):
+                size = batch[0].shape[0]
+                if self.mesh is not None:
+                    batch = self._rank_rows(batch)
+                obs, pt, vt, _ = batch
+                with span("nuzero.learner.forward"):
+                    c_l, (v_l, p_l) = self._forward_loss(leaves, obs, pt, vt, rng,
+                                                         train_iters=iters[t])
+                b = obs.shape[0]
+                tot_c = tot_c + c_l * b
+                tot_v = tot_v + v_l * b
+                tot_p = tot_p + p_l * b
+                n += size
+                per_type[f"loss/type{t}"] = c_l.detach() * (b / size)
+            c_l, v_l, p_l = tot_c / n, tot_v / n, tot_p / n
+            with span("nuzero.learner.backward"):
+                grads = self._grads(c_l, leaves)
+                if self.mesh is not None:
+                    keys = list(per_type)
+                    reduced, grads = self.all_reduce((c_l, v_l, p_l, *per_type.values()), grads)
+                    (c_l, v_l, p_l), per_type = reduced[:3], dict(zip(keys, reduced[3:]))
+            metrics = {
+                "loss/value": v_l.detach(),
+                "loss/policy": p_l.detach(),
+                "loss/combined": c_l.detach(),
+                "grad_norm": global_norm(grads.values()),
+                **per_type,
+            }
+            with span("nuzero.learner.optimizer"):
+                return self.apply_gradients(state, grads), metrics

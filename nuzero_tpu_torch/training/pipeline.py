@@ -40,7 +40,8 @@ Environment switches: ``NUZERO_MFU=1`` journals ``train_flops_per_s``
 (3x the FLOPs of one forward at the train batch size, counted once by
 ``torch.utils.flop_counter`` on the ``meta`` device, per second of the
 step); ``NUZERO_TRACE_DIR=<dir>`` writes a Chrome trace of step
-``starting_step + 2`` (``torch.profiler``) into ``<dir>``.
+``starting_step + 2`` (``torch.profiler``) into ``<dir>``, with the port's
+``nuzero.*`` spans (``utils/profiling.py``) among its events.
 
 Resume: ``load`` restores params, optimizer state and buffer; where the
 checkpoint holds no buffer and ``load_buffer`` is on, the newest saved
@@ -103,7 +104,7 @@ from nuzero_tpu_torch.utils.metrics import MetricsJournal
 from nuzero_tpu_torch.utils.packing import make_packer
 from nuzero_tpu_torch.utils.plots import plot_training_run
 from nuzero_tpu_torch.utils.printbar import PrintBar
-from nuzero_tpu_torch.utils.profiling import PhaseTimers
+from nuzero_tpu_torch.utils.profiling import PhaseTimers, span
 
 
 def learner_config_from_training(cfg: TrainingConfig, num_game_types: int = 1) -> LearnerConfig:
@@ -317,14 +318,16 @@ class AlphaZero:
     def _sample_obs(self, rng, batch_size, *, late_heavy, with_replacement, game_type=None):
         """A batch drawn from the buffer (from ``game_type``'s games only,
         where given) with its observations."""
-        enc, pol, val, gt = replay_lib.sample(
-            self.buffer, rng, batch_size, late_heavy=late_heavy,
-            with_replacement=with_replacement, game_type=game_type, mesh=self.mesh)
-        return self._observe(enc, game_type or 0), pol, val, gt
+        with span("nuzero.replay.sample"):
+            enc, pol, val, gt = replay_lib.sample(
+                self.buffer, rng, batch_size, late_heavy=late_heavy,
+                with_replacement=with_replacement, game_type=game_type, mesh=self.mesh)
+            return self._observe(enc, game_type or 0), pol, val, gt
 
     def _gather_obs(self, idx, game_type: int = 0):
-        enc, pol, val, gt = replay_lib.gather(self.buffer, idx, self.mesh)
-        return self._observe(enc, game_type), pol, val, gt
+        with span("nuzero.replay.sample"):
+            enc, pol, val, gt = replay_lib.gather(self.buffer, idx, self.mesh)
+            return self._observe(enc, game_type), pol, val, gt
 
     def _mover(self, step_fn, sp, params):
         """A function that plays one move of every game of ``sp`` in place ->
@@ -341,27 +344,32 @@ class AlphaZero:
             concurrent.futures.wait([f for _, f in self._pending_tests])
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = self._graphs[step_fn] = capture_selfplay_step(step_fn, params, sp,
-                                                                  self._pool)
+            with span("nuzero.selfplay.capture"):
+                graph = self._graphs[step_fn] = capture_selfplay_step(step_fn, params, sp,
+                                                                      self._pool)
         graph.load_params(params)
         return lambda: (*graph.replay(), graph.overflow)
 
     def _launch(self, move, pending: collections.deque):
         """Play one move-batch, add its finished games to the buffer and
         queue its (finished count, overflow flag) -> the batch's stats."""
-        finished, stats, overflow = move()
-        self._sp_batches += 1
-        self.buffer = replay_lib.add_games(self.buffer, finished)
-        pending.append(torch.stack([stats["finished"].to(torch.int64),
-                                    overflow.to(torch.int64)]))
-        return stats
+        with span("nuzero.selfplay.launch", self._sp_batches):
+            with span("nuzero.selfplay.replay"):
+                finished, stats, overflow = move()
+            self._sp_batches += 1
+            with span("nuzero.replay.add_games"):
+                self.buffer = replay_lib.add_games(self.buffer, finished)
+            pending.append(torch.stack([stats["finished"].to(torch.int64),
+                                        overflow.to(torch.int64)]))
+            return stats
 
     def _settle(self, counts) -> int:
         """The finished count of a queued move-batch, over every rank; raises
         where one of its bounded loops overflowed on any rank."""
-        if self.mesh is not None:
-            counts = self.mesh.all_reduce(counts)
-        n, overflow = counts.tolist()
+        with span("nuzero.selfplay.settle"):
+            if self.mesh is not None:
+                counts = self.mesh.all_reduce(counts)
+            n, overflow = counts.tolist()
         if overflow:
             raise OverflowError("self-play: a loop bounded for the move's CUDA graph "
                                 "ran past its bound")
@@ -800,7 +808,8 @@ class AlphaZero:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        tracer = torch.profiler.profile(activities=activities)
+        # Recording shapes also puts each span's tag into its event.
+        tracer = torch.profiler.profile(activities=activities, record_shapes=True)
         tracer.start()
         return tracer
 

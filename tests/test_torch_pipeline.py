@@ -614,7 +614,8 @@ def flop_counts(batch=1, iterations=4):
 
 def test_trace_dir_gets_a_chrome_trace(tmp_path, monkeypatch):
     """``NUZERO_TRACE_DIR``: step ``starting_step + 2`` is traced and its
-    Chrome trace written into the directory."""
+    Chrome trace written into the directory, with the port's spans of the
+    step among its events, each launch tagged with its move-batch number."""
     import json
 
     monkeypatch.setenv("NUZERO_TRACE_DIR", str(tmp_path / "trace"))
@@ -624,6 +625,11 @@ def test_trace_dir_gets_a_chrome_trace(tmp_path, monkeypatch):
     with open(tmp_path / "trace" / "step_00000002.trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}
+    for span in ("nuzero.phase.selfplay", "nuzero.selfplay.launch", "nuzero.learner.update"):
+        assert span in names, span
+    tags = [e["args"].get("tag") for e in events if e.get("name") == "nuzero.selfplay.launch"]
+    assert tags and all(isinstance(t, int) for t in tags), tags
 
 
 def test_a_run_without_matplotlib_draws_nothing_and_warns_once(tmp_path, monkeypatch):

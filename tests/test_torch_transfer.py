@@ -54,6 +54,7 @@ from nuzero_tpu_torch.networks.convert import recurrent_net_state_dict  # noqa: 
 from nuzero_tpu_torch.utils.checkpoint import (  # noqa: E402
     latest_step, restore_checkpoint, save_checkpoint,
 )
+from nuzero_tpu_torch.utils import profiling  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -363,10 +364,12 @@ def test_iteration_sweep_equals_jax_and_the_committed_curve(run, tmp_path):
     TPU) wherever the JAX package on the CPU reproduces it:
     ``scs_solo_r3`` collapses at 18 iterations, the progressive loss's
     ``scs_solo_prog_r3`` does not."""
-    record, seconds = sweeps.iteration_sweep(run, out_dir=str(tmp_path), iterations=[2],
-                                             games=2, device="cpu")
-    late, _ = sweeps.iteration_sweep(run, iterations=SWEEP_POINTS[2:], games=2, device="cpu")
-    mid, _ = sweeps.iteration_sweep(run, iterations=[10], games=2, device="cpu")
+    before = profiling.snapshot().get("nuzero.arena.move", {"calls": 0})["calls"]
+    record = sweeps.iteration_sweep(run, out_dir=str(tmp_path), iterations=[2], games=2,
+                                    device="cpu")
+    moves = profiling.snapshot()["nuzero.arena.move"]["calls"] - before
+    late = sweeps.iteration_sweep(run, iterations=SWEEP_POINTS[2:], games=2, device="cpu")
+    mid = sweeps.iteration_sweep(run, iterations=[10], games=2, device="cpu")
     got = record["results"] + mid["results"] + late["results"]
     with open(tmp_path / "iteration_sweep.json") as f:
         assert json.load(f) == record
@@ -375,7 +378,7 @@ def test_iteration_sweep_equals_jax_and_the_committed_curve(run, tmp_path):
         committed = json.load(f)
     assert record["checkpoint_step"] == committed["checkpoint_step"]
     committed = {r["iterations"]: r for r in committed["results"]}
-    assert len(seconds) == 1 and seconds[0]
+    assert moves > 0
     for point in got:
         iters = point["iterations"]
         (_, jax_rates), = _jax_iteration_sweep(run, iters, 2)
@@ -444,9 +447,10 @@ def test_size_sweep_outcomes_equal_jax_game_for_game(size, iters):
 def test_size_sweep_writes_run_py_schema(tmp_path):
     """Preset 3 on the port at 2 games per point (sizes 5 and 7, 2
     iterations): the JSON carries the committed ``size_sweep.json``'s keys,
-    each point's rates sum to one, and each point timed every arena move."""
-    record, seconds = sweeps.size_sweep("scs_solo_rvp_r5", out_dir=str(tmp_path),
-                                        sizes=(5, 7), iterations=(2,), games=2, device="cpu")
+    each point's rates sum to one, and the sweep timed its arena moves."""
+    before = profiling.snapshot().get("nuzero.arena.move", {"calls": 0, "total_s": 0.0})
+    record = sweeps.size_sweep("scs_solo_rvp_r5", out_dir=str(tmp_path), sizes=(5, 7),
+                               iterations=(2,), games=2, device="cpu")
     with open(tmp_path / "size_sweep.json") as f:
         assert json.load(f) == record
     assert sorted(os.listdir(tmp_path)) == ["size_sweep.json", "size_sweep.png"]
@@ -461,7 +465,8 @@ def test_size_sweep_writes_run_py_schema(tmp_path):
     for point in points:
         assert point.keys() == committed["curves"][label][0].keys()
         assert math.isclose(point["p0_wr"] + point["p1_wr"] + point["draw_rate"], 1.0)
-    assert len(seconds) == 2 and all(seconds)
+    after = profiling.snapshot()["nuzero.arena.move"]
+    assert after["calls"] > before["calls"] and after["total_s"] > before["total_s"]
 
 
 def test_arena_draws_each_games_layout_from_its_generator():
