@@ -5,7 +5,8 @@ Checkpoints hold only tensors, so each run directory carries a small
 ``run_meta.yaml`` naming the game, scenario and architecture; the env and
 the network are rebuilt from it and the parameters restored from the
 checkpoint.  The file's schema is the JAX package's, so the committed runs'
-``run_meta.yaml`` files load unchanged.
+``run_meta.yaml`` files load unchanged; a ResNet with BatchNorms adds
+``batch_norm: true`` (a file without the key has none).
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ META_FILE = "run_meta.yaml"
 
 def save_run_meta(run_dir: str, game: str, arch: str, *, scenario: Optional[str] = None,
                   seed: int = 42, hex: Optional[bool] = None, num_filters: int = 64,
-                  num_blocks: Optional[int] = None, randomize_vp: bool = False) -> str:
+                  num_blocks: Optional[int] = None, randomize_vp: bool = False,
+                  batch_norm: bool = False) -> str:
     """``game``: "ttt" | "scs".  ``scenario``: a scenario YAML file name under
     ``configs/scenarios`` (scs only).  ``arch``: mlp | conv | recurrent |
-    resnet."""
+    resnet; ``num_blocks`` and ``batch_norm`` size a resnet's tower."""
     if hex is None:
         hex = game == "scs"
     if num_blocks is None:
@@ -38,6 +40,8 @@ def save_run_meta(run_dir: str, game: str, arch: str, *, scenario: Optional[str]
         "num_blocks": num_blocks,
         "randomize_vp": bool(randomize_vp),
     }
+    if batch_norm:  # written only where set, so other metas stay the JAX package's
+        meta["batch_norm"] = True
     path = os.path.join(run_dir, META_FILE)
     save_yaml(meta, path)
     return path
@@ -91,7 +95,7 @@ def build_from_meta(meta: dict, repo_root: str, device="cuda") -> Tuple[object, 
                            hex=hex)
     elif arch == "resnet":
         net = ResNet(channels, policy_channels, num_filters=filters, num_blocks=blocks,
-                     hex=hex)
+                     batch_norm=bool(meta.get("batch_norm", False)), hex=hex)
     else:
         raise ValueError(f"unknown arch {arch!r} in run_meta")
     return env, NetworkManager(net.to(env.device), env.observation_shape)

@@ -9,6 +9,9 @@ bf16 with f32 accumulation).  Filter ramps reproduce the reference's
 
 ``BatchNorm`` is Flax's ``nn.BatchNorm`` as the JAX nets apply it outside
 training: the running mean and variance (buffers) normalize, epsilon 1e-5.
+Inside ``batch_statistics(module)`` it is torch's ``nn.BatchNorm2d`` in
+training mode instead (the learner's forward; ``update_running_stats``
+moves the buffers after the update).
 Every value head of the JAX registry (``VALUE_HEADS``) is here, the
 reference's discontinued ones (``depth``, ``combined``, ``separable``,
 ``reverse``, ``rawsep``, ``strange``) included, with their per-channel
@@ -147,13 +150,21 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax's ``nn.BatchNorm(use_running_average=True)`` over the channels of
-    NHWC activations: ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias`` in
-    f32, returned in ``dtype``.  The running mean and variance are buffers;
-    nothing here updates them (the JAX learner cannot train a BatchNorm net
-    either, see ``training/learner.py``)."""
+    """Batch normalization over the channels of NHWC activations, in f32,
+    returned in ``dtype``.  The caller picks the statistics:
+
+    - by default Flax's ``nn.BatchNorm(use_running_average=True)``: the
+      running mean and variance (buffers) normalize,
+      ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias``;
+    - inside ``batch_statistics(module)``, torch's ``nn.BatchNorm2d`` in
+      training mode: the batch's own mean and biased variance over
+      (B, H, W) normalize, and the batch's mean and unbiased variance are
+      appended to the block's record.  The forward writes no buffer; the
+      caller moves them with ``update_running_stats``.
+    """
 
     eps = 1e-5
+    momentum = 0.1
 
     def __init__(self, features: int, dtype=torch.float32):
         super().__init__()
@@ -162,10 +173,54 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.record = None  # a list while ``batch_statistics`` is open
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+        if self.record is None:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+        x = x.float()
+        n = x.numel() // x.shape[-1]
+        if n < 2:
+            raise ValueError("BatchNorm: batch statistics need more than one value per channel")
+        var, mean = torch.var_mean(x, dim=tuple(range(x.dim() - 1)), unbiased=False)
+        self.record.append((mean.detach(), var.detach() * (n / (n - 1))))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
+@contextlib.contextmanager
+def batch_statistics(module: nn.Module):
+    """Every ``BatchNorm`` of ``module`` normalizes by its batch's statistics
+    inside the block, which yields their record: {the norm's module name:
+    [(batch mean, unbiased batch variance), one per call]}.  Nothing is
+    recorded for a module without one."""
+    norms = {name: m for name, m in module.named_modules() if isinstance(m, BatchNorm)}
+    records = {name: [] for name in norms}
+    for name, m in norms.items():
+        m.record = records[name]
+    try:
+        yield records
+    finally:
+        for m in norms.values():
+            m.record = None
+
+
+def update_running_stats(variables, records) -> dict:
+    """The running means and variances of ``variables`` moved by a
+    ``batch_statistics`` record, as torch's ``nn.BatchNorm2d`` moves them at
+    each training call: ``(1 - 0.1) * running + 0.1 * batch``, the variance
+    unbiased -> {buffer name: new tensor}."""
+    out = {}
+    m = BatchNorm.momentum
+    for name, calls in records.items():
+        prefix = f"{name}." if name else ""
+        mean, var = variables[prefix + "running_mean"], variables[prefix + "running_var"]
+        for batch_mean, batch_var in calls:
+            mean = (1 - m) * mean + m * batch_mean
+            var = (1 - m) * var + m * batch_var
+        out[prefix + "running_mean"], out[prefix + "running_var"] = mean, var
+    return out
 
 
 def _norm(batch_norm: bool, features: int, dtype):

@@ -18,6 +18,16 @@ kernels on the card) and applies optax's update rules written out:
   boundary (optax's ``sign(boundary - count)``).  ``set_schedule_count``
   overwrites that count.
 
+A network with BatchNorm (``networks/blocks.py``) trains as torch's
+``nn.BatchNorm2d`` does, the upstream rule (the JAX learner cannot train
+one: Flax refuses its ``batch_stats`` update): the update's forward
+normalizes by the batch's statistics, and after the optimizer step the
+running means and variances move by them (momentum 0.1), returned in the
+new ``TrainState.params``.  The optimizer, its state, weight decay and the
+gradient norm see the parameters alone, never those buffers.  A mesh
+(cross-rank batch statistics) and ``train_step_multi`` (one forward per
+game type would normalize each by its own statistics) refuse such a net.
+
 The progressive loss draws n ~ U{0..m-1}, k ~ U{1..m-n} on the host from a
 ``torch.Generator`` (``progressive_draws``); tests substitute recorded draws.
 
@@ -34,6 +44,7 @@ generator, which every rank seeds alike.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -41,6 +52,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from nuzero_tpu_torch.networks.blocks import batch_statistics, update_running_stats
 from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.parallel.mesh import shard_batch
 from nuzero_tpu_torch.training import losses
@@ -96,17 +108,17 @@ class Learner:
                  draws: Callable[[torch.Generator, int], Tuple[int, int]] = progressive_draws,
                  mesh=None):
         """The learner runs where ``manager``'s module lies; ``mesh`` makes
-        each update data-parallel over its ranks (see the module).  A net with
-        BatchNorm is refused: the JAX learner applies it with ``train=True``
-        and its ``batch_stats`` immutable, which Flax refuses
-        (``ModifyScopeVariableError``), so the reference has no training
-        rule for it to port."""
-        if manager.has_batch_norm:
+        each update data-parallel over its ranks (see the module), for a net
+        without BatchNorm."""
+        if manager.has_batch_norm and mesh is not None:
             raise NotImplementedError(
-                "Learner: a network with batch_norm cannot be trained; the JAX learner "
-                "applies it in training mode with its batch_stats immutable, which Flax "
-                "refuses, so there is no reference training rule to port")
+                "Learner: a network with batch_norm on a mesh needs cross-rank batch "
+                "statistics (synchronized BatchNorm), which the port does not implement")
         self.manager = manager
+        # The module's buffers (BatchNorm's running statistics): carried
+        # through the optimizer untouched, moved by ``update_running_stats``.
+        self._buffers = frozenset(name for name, _ in manager.module.named_buffers())
+        self._batch_norm = manager.has_batch_norm
         self.config = config
         self.draws = draws
         self.mesh = mesh
@@ -123,6 +135,7 @@ class Learner:
         return float(lr)
 
     def init_opt_state(self, params: Params) -> dict:
+        params = {k: v for k, v in params.items() if k not in self._buffers}
         zeros = {k: torch.zeros_like(v) for k, v in params.items()}
         if self.adam:
             return {"schedule_count": 0, "count": 0, "mu": zeros,
@@ -179,6 +192,9 @@ class Learner:
         return c_l, (v_l, p_l)
 
     def _grads(self, loss: torch.Tensor, params: Params) -> Params:
+        """The gradient of ``loss`` by every leaf of ``params`` that
+        requires one (the buffers do not)."""
+        params = {k: p for k, p in params.items() if p.requires_grad}
         got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         return {k: torch.zeros_like(p) if g is None else g
                 for (k, p), g in zip(params.items(), got)}
@@ -192,7 +208,7 @@ class Learner:
         if self.mesh is not None:
             batch = self._rank_rows(batch)
         obs, policy_target, value_target, _ = batch
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        leaves = self._leaves(params)
         with span("nuzero.learner.forward"):
             c_l, (v_l, p_l) = self._forward_loss(
                 leaves, obs, policy_target, value_target, rng, train_iters)
@@ -219,6 +235,9 @@ class Learner:
             bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** count)
             mu, nu = {}, {}
             for k, p in state.params.items():
+                if k in self._buffers:
+                    params[k] = p
+                    continue
                 g = grads[k]
                 mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * opt["mu"][k]
                 nu[k] = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt["nu"][k]
@@ -230,12 +249,36 @@ class Learner:
             cfg = self.config
             trace = {}
             for k, p in state.params.items():
+                if k in self._buffers:
+                    params[k] = p
+                    continue
                 g = grads[k] + cfg.weight_decay * p
                 trace[k] = g + cfg.momentum * opt["trace"][k]
                 update = g + cfg.momentum * trace[k] if cfg.nesterov else trace[k]
                 params[k] = p + update * -lr
             new_opt = {"schedule_count": opt["schedule_count"] + 1, "trace": trace}
         return TrainState(params=params, opt_state=new_opt, step=state.step + 1)
+
+    def _leaves(self, params: Params) -> Params:
+        """Fresh autograd leaves of ``params``; the buffers take no gradient."""
+        return {k: v.detach().requires_grad_(k not in self._buffers)
+                for k, v in params.items()}
+
+    def _batch_statistics(self):
+        """The forward's normalization: ``batch_statistics`` of the module for
+        a net with BatchNorm (-> its record), else nothing (-> {})."""
+        if not self._batch_norm:
+            return contextlib.nullcontext({})
+        return batch_statistics(self.manager.module)
+
+    def _move_running_stats(self, new: TrainState, records) -> TrainState:
+        """``new`` with the running statistics moved by the update's record."""
+        if not records:
+            return new
+        with span("nuzero.learner.norm_stats"):
+            with torch.no_grad():
+                moved = update_running_stats(new.params, records)
+            return dataclasses.replace(new, params={**new.params, **moved})
 
     # -- data parallel ----------------------------------------------------------
 
@@ -262,7 +305,8 @@ class Learner:
         game_type); ``rng`` feeds the progressive loss's draws.  With a
         mesh, ``batch`` is the global batch (the same on every rank)."""
         with span("nuzero.learner.update"):
-            c_l, (v_l, p_l), grads = self.value_and_grad(state.params, batch, rng)
+            with self._batch_statistics() as records:
+                c_l, (v_l, p_l), grads = self.value_and_grad(state.params, batch, rng)
             metrics = {
                 "loss/value": v_l.detach(),
                 "loss/policy": p_l.detach(),
@@ -270,17 +314,25 @@ class Learner:
                 "grad_norm": global_norm(grads.values()),
             }
             with span("nuzero.learner.optimizer"):
-                return self.apply_gradients(state, grads), metrics
+                new = self.apply_gradients(state, grads)
+            return self._move_running_stats(new, records), metrics
 
     def train_step_multi(self, state: TrainState, batches, rng: Optional[torch.Generator] = None):
         """One SGD update over per-game-type sub-batches, each forwarded at
         its own recurrent iteration count; the losses are weighted by each
         type's positions, plus ``loss/type{t}`` per type.  With a mesh each
-        sub-batch is global and each rank forwards its block of each."""
+        sub-batch is global and each rank forwards its block of each.  A net
+        with BatchNorm is refused: each type's forward would normalize by
+        its own sub-batch's statistics, where the upstream normalizes the
+        whole batch at once."""
+        if self._batch_norm:
+            raise NotImplementedError(
+                "Learner.train_step_multi: a network with batch_norm would normalize each "
+                "game type's sub-batch by its own statistics; train one game type")
         with span("nuzero.learner.update"):
             iters = self.config.train_iterations_per_type or tuple(
                 self.config.train_iterations for _ in batches)
-            leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            leaves = self._leaves(state.params)
             tot_c = tot_v = tot_p = 0.0
             n = 0
             per_type = {}

@@ -228,6 +228,29 @@ def test_an_update_opens_the_learner_spans():
     assert update["self_s"] < update["total_s"]
 
 
+@pytest.mark.parametrize("batch_norm", [True, False], ids=["tower", "recurrent"])
+def test_the_norm_stats_span_counts_updates_of_a_batch_norm_net(batch_norm):
+    """``nuzero.learner.norm_stats`` opens once per update of a net with
+    BatchNorm, around its running statistics' move, and never for the
+    recurrent net, which has none."""
+    from nuzero_tpu_torch.networks.recurrent import RecurrentNet
+    from nuzero_tpu_torch.networks.resnet import ResNet
+    from nuzero_tpu_torch.training.learner import Learner, LearnerConfig
+
+    shape = (3, 3, 3)
+    net = (ResNet(3, 1, num_filters=4, num_blocks=1, batch_norm=True, hex=False) if batch_norm
+           else RecurrentNet(3, 1, num_filters=4, hex=False))
+    learner = Learner(NetworkManager(net, shape), LearnerConfig(train_iterations=1))
+    state = learner.init_state(torch.Generator().manual_seed(0))
+    batch = (torch.randn((4,) + shape), torch.full((4, 9), 1 / 9), torch.zeros(4),
+             torch.zeros(4, dtype=torch.int32))
+    for _ in range(3):
+        state, _ = learner.train_step(state, batch)
+    got = profiling.snapshot()
+    assert got["nuzero.learner.update"]["calls"] == 3
+    assert got.get("nuzero.learner.norm_stats", {}).get("calls", 0) == (3 if batch_norm else 0)
+
+
 # -- the benchmark's readers --------------------------------------------------
 
 def _span_readers():

@@ -27,7 +27,7 @@ from nuzero_tpu_torch.networks.convnet import ConvNet
 from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.networks.mlp import MLPNetwork
 from nuzero_tpu_torch.networks.resnet import ResNet
-from nuzero_tpu_torch.training.learner import Learner, LearnerConfig
+from nuzero_tpu_torch.training.learner import Learner, LearnerConfig, TrainState
 
 torch.set_num_threads(2)
 
@@ -188,21 +188,30 @@ def test_batch_norm_is_running_average_inference():
 def test_learner_refuses_a_batch_norm_net():
     """JAX cannot train a BatchNorm net (its learner applies with
     train=True and batch_stats immutable, which Flax refuses); the port's
-    Learner says so up front."""
+    Learner trains the same net on the same batch as torch's BatchNorm2d
+    does (held to a plain reference in ``tests/test_torch_az_tower.py``):
+    the running statistics move and come back in the new parameters."""
     from flax.errors import ModifyScopeVariableError
 
     from nuzero_tpu.training.learner import Learner as JaxLearner
     from nuzero_tpu.training.learner import LearnerConfig as JaxLearnerConfig
 
-    _, jmgr, _, tmgr, _ = _pair("resnet", "float32", False, True, "reduce")
+    _, jmgr, _, tmgr, tvars = _pair("resnet", "float32", False, True, "reduce")
     jlearner = JaxLearner(jmgr, JaxLearnerConfig())
     state = jlearner.init_state(jax.random.key(0))
     batch = (jnp.zeros((2,) + ORTHO_OBS), jnp.full((2, 9), 1 / 9), jnp.zeros(2),
              jnp.zeros(2, jnp.int32))
     with pytest.raises(ModifyScopeVariableError):
         jlearner.train_step(state, batch, jax.random.key(1))
-    with pytest.raises(NotImplementedError, match="batch_norm"):
-        Learner(tmgr, LearnerConfig())
+    learner = Learner(tmgr, LearnerConfig())
+    tstate = TrainState(params=tvars, opt_state=learner.init_opt_state(tvars), step=0)
+    actions = POLICY_CHANNELS * ORTHO_OBS[1] * ORTHO_OBS[2]
+    tbatch = (torch.zeros((2,) + ORTHO_OBS), torch.full((2, actions), 1 / actions),
+              torch.zeros(2), torch.zeros(2, dtype=torch.int32))
+    new, metrics = learner.train_step(tstate, tbatch)
+    assert new.step == 1 and torch.isfinite(metrics["loss/combined"])
+    stats = [k for k, _ in tmgr.module.named_buffers()]
+    assert stats and all(not torch.equal(new.params[k], tvars[k]) for k in stats)
     _, _, _, plain_mgr, _ = _pair("resnet", "float32", False, False, "reduce")
     Learner(plain_mgr, LearnerConfig())
 
