@@ -214,9 +214,23 @@ The last modules of the port:
    (c) a one-rank NCCL group's gradient bit-equal to the one without it.  NCCL
    across cards needs more than one card and is not run.
 
-The last two lines are a JSON summary of the kernels (with each kernel's
-launches in phase 15, ``cli``, 16, ``heads``, and 17, rank 0's,
-``data_parallel``) and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+The SCS env's step kernel (``csrc/scs_step.cu``), run after phase 2:
+
+18. at each shape the benchmark's cells step (``SCS_STEP_SHAPES``:
+   ``solo_scout_5`` with victory points per game at B=128, ``open_field_5``
+   at B=512 and 1,024, the transfer sweep's 15x15, 21-turn solo scout at
+   B=64), random legal play on the card to every game's end and three steps
+   more, ``SCSGame.step`` (the kernel) against its plain version, the eager
+   body ``SCSGame._step``, on the same states: every field equal
+   (``torch.equal``), one launch a step; then both timed as graphs of the
+   first 32 steps (kernel, plain and bound in us a step).  Phases 4 and 5
+   also count the kernel's launches: one per simulation and one for the
+   move, in the eager moves and in the capture with its warm-up.
+
+The last two lines are a JSON summary of the kernels (with each hex-conv
+kernel's launches in phase 15, ``cli``, 16, ``heads``, and 17, rank 0's,
+``data_parallel``; the SCS step kernel's launches in phases 4 and 5 and its
+times in phase 18) and ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -249,6 +263,16 @@ REPLACES = "nuzero_tpu/ops/pallas/hexconv_kernel.py:91"
 DW_REPLACES = "nuzero_tpu/ops/hexconv.py:205"
 # (filters, dtype name, batch) of the two self-play legs.
 LEGS = ((256, "bfloat16", 768), (64, "float32", 512))
+SCS_STEP_SOURCE = "nuzero_tpu_torch/ops/cuda/csrc/scs_step.cu"
+# The kernel replaces no Pallas kernel: the JAX engine's step is plain JAX.
+SCS_STEP_REPLACES = "nuzero_tpu/envs/scs/game.py:SCSGame.step"
+# (scenario, per-game victory points, batch) of phase 18: the shapes the
+# benchmark's cells step (solo64, contested256 and its B=1,024 variant, the
+# arena's 15x15 sweep point, "sweep15").
+SCS_STEP_SHAPES = (("solo_scout_5", True, 128), ("open_field_5", False, 512),
+                   ("open_field_5", False, 1024), ("sweep15", True, 64))
+SCS_STEP_TIMED = 32  # recorded steps a timed graph holds
+SCS_STEP_REPLAYS = 20
 # (filters, dtype name) of the two learner widths: the flagship and
 # scs_small.yaml's (the training recipe's default width).
 NETS = ((256, "bfloat16"), (64, "float32"))
@@ -522,15 +546,139 @@ def check_policy(policy, legal):
         raise AssertionError("policy targets are not distributions over legal actions")
 
 
+def scs_step_env(scenario, randomize_vp):
+    from nuzero_tpu_torch.envs.scs.game import SCSGame
+    from nuzero_tpu_torch.envs.scs.scenario import load_scenario
+    from nuzero_tpu_torch.evaluation.sweeps import size_env
+
+    if scenario == "sweep15":
+        return size_env(15)
+    path = os.path.join(REPO, "configs", "scenarios", scenario + ".yml")
+    return SCSGame(load_scenario(path, seed=42), randomize_vp=randomize_vp, device="cuda")
+
+
+def scs_step_graph(fn, pairs):
+    """A graph (``graphs.capture``, with its overflow flag) that calls ``fn``
+    on each (state, action) of ``pairs`` once, after one eager pass on a side
+    stream; (graph, outputs, flag)."""
+    import torch
+
+    from nuzero_tpu_torch.utils import graphs
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), graphs.overflow_into(torch.zeros((), dtype=torch.bool,
+                                                                   device="cuda")):
+        for state, action in pairs:
+            fn(state, action)
+    torch.cuda.current_stream().wait_stream(side)
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with graphs.capture(graph, overflow=flag):
+        outs = [fn(state, action) for state, action in pairs]
+    return graph, outs, flag
+
+
+def scs_step_check(card):
+    """Phase 18: the SCS env's step kernel against its plain version, the
+    eager body ``SCSGame._step``, on the same card states at each shape of
+    ``SCS_STEP_SHAPES``: random legal play from the opening until every game
+    has finished and three steps more, every field of every step equal bit
+    for bit (``torch.equal``), one launch a step.  Then the first
+    ``SCS_STEP_TIMED`` steps as two graphs, one of ``SCSGame.step`` (a kernel
+    node a step) and one of ``_step`` (its stage-machine loops as
+    while-nodes, as the self-play move's graph held the step before the
+    kernel), each output checked against the eager body again, each replayed
+    ``SCS_STEP_REPLAYS`` times: ms a step from the median replay's CUDA
+    events.  The bound is the bytes a step reads and writes (every field in
+    and out, and the action) at the card's memory rate; the kernel is bound by
+    latency instead (its source note).  Returns one dict a shape."""
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda import scs_step_kernel
+    from nuzero_tpu_torch.ops.cuda.measure import PEAK_BYTES
+
+    def fields(state):
+        return [getattr(state, f.name) for f in dataclasses.fields(state)]
+
+    def replay_ms(graph):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ms = []
+        for _ in range(SCS_STEP_REPLAYS):
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms)
+
+    lines = []
+    for scenario, randomize_vp, batch in SCS_STEP_SHAPES:
+        env = scs_step_env(scenario, randomize_vp)
+        label = f"{scenario} B={batch}"
+        gen = torch.Generator(device="cuda").manual_seed(2**31 + batch)
+        state = env.init(batch, generator=gen)
+        scs_step_kernel.reset_launch_count()
+        pairs, steps, after = [], 0, 0
+        while after < 3:
+            legal = env.legal_mask(state)
+            u = torch.rand(legal.shape, generator=gen, device="cuda")
+            action = torch.where(legal, u, -1.0).argmax(-1).to(torch.int32)
+            want = env._step(state, action)
+            got = env.step(state, action)
+            differ = [f.name for f, g, w in zip(dataclasses.fields(want), fields(got),
+                                                  fields(want)) if not torch.equal(g, w)]
+            if differ:
+                raise AssertionError(f"scs_step {label} step {steps}: the kernel differs from "
+                                     f"the eager body in {differ}")
+            if len(pairs) < SCS_STEP_TIMED:
+                pairs.append((state, action))
+            state = want
+            steps += 1
+            after += bool(state.terminal.all())
+            if steps > env.max_game_length + 3:
+                raise AssertionError(f"scs_step {label}: a game outlasted the scenario's bound")
+        env.terminal_value(state)  # raises if a step overflowed
+        if scs_step_kernel.launch_count[scs_step_kernel.KERNEL] != steps:
+            raise AssertionError(f"scs_step {label}: {scs_step_kernel.launch_count} launches "
+                                 f"in {steps} steps")
+        want = [fields(env._step(s, a)) for s, a in pairs]
+        ms = {}
+        for name, fn in (("kernel", env.step), ("plain", env._step)):
+            graph, outs, flag = scs_step_graph(fn, pairs)
+            graph.replay()
+            torch.cuda.synchronize()
+            if bool(flag):
+                raise AssertionError(f"scs_step {label}: the {name} graph overflowed")
+            for i, (out, w) in enumerate(zip(outs, want)):
+                if not all(torch.equal(g, e) for g, e in zip(fields(out), w)):
+                    raise AssertionError(f"scs_step {label}: the {name} graph's step {i} "
+                                         f"differs from the eager body")
+            ms[name] = replay_ms(graph) / len(pairs)
+            del graph, outs
+        nbytes = 2 * sum(t.numel() * t.element_size() for t in fields(pairs[0][0]))
+        nbytes += pairs[0][1].numel() * pairs[0][1].element_size()
+        line = {"scenario": scenario, "batch": batch, "steps_checked": steps,
+                "ms": ms["kernel"], "plain_ms": ms["plain"],
+                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+        lines.append(line)
+        log(f"scs_step {label}: {steps} steps to every game's end and 3 more, every field "
+            f"equal to the eager body; graph of {len(pairs)} steps: kernel "
+            f"{1e3 * line['ms']:.2f} us a step, plain {1e3 * line['plain_ms']:.1f} us, bound "
+            f"{1e3 * line['bound_ms']:.3f} us ({nbytes} bytes), "
+            f"{100 * line['bound_ms'] / line['ms']:.1f}% of bound  [{card}]")
+    return lines
+
+
 def selfplay_leg(filters, dtype, batch, card):
     """The eager moves, then the same moves as replays of the captured
     move, from the same state and generator state; returns (launches of the
-    eager moves, evals, eager seconds per move, replayed seconds per
-    move)."""
+    eager moves, evals, eager seconds per move, replayed seconds per move,
+    the SCS step kernel's launches in the eager moves)."""
     import torch
 
     from nuzero_tpu_torch.envs.scs.game import SCSGame
-    from nuzero_tpu_torch.ops.cuda import hexconv_kernel
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel, scs_step_kernel
     from nuzero_tpu_torch.search.mcts import SearchParams
     from nuzero_tpu_torch.training.selfplay import (
         capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
@@ -582,6 +730,7 @@ def selfplay_leg(filters, dtype, batch, card):
     seconds, eager = [], []
     bi = torch.arange(batch, device="cuda")
     hexconv_kernel.reset_launch_count()
+    scs_step_kernel.reset_launch_count()
     evals = 0
     for move in range(MOVES):
         before = int(sp.total_moves)
@@ -612,8 +761,11 @@ def selfplay_leg(filters, dtype, batch, card):
     log(f"host syncs of eager move 0 ({label}; sync debug mode, by site): "
         + ", ".join(f"{k} x{v}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
     counts = dict(hexconv_kernel.launch_count)
+    steps = scs_step_kernel.launch_count[scs_step_kernel.KERNEL]
     if evals != (1 + SIMS) * MOVES:
         raise AssertionError(f"{evals} network evaluations, expected {(1 + SIMS) * MOVES}")
+    if steps != (1 + SIMS) * MOVES:  # a step per simulation, and the move's own
+        raise AssertionError(f"{steps} SCS step kernel launches, expected {(1 + SIMS) * MOVES}")
     expected = {name: 0 for name in counts}
     expected[hexconv_kernel.KERNELS[dtype]] = CONVS_PER_EVAL * evals
     if counts != expected:
@@ -631,6 +783,7 @@ def selfplay_leg(filters, dtype, batch, card):
     gsp = fresh_state()
     _, unpack, dim = make_packer(env.init(1))
     hexconv_kernel.reset_launch_count()
+    scs_step_kernel.reset_launch_count()
     evals = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -638,9 +791,11 @@ def selfplay_leg(filters, dtype, batch, card):
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     captured = hexconv_kernel.launch_count[hexconv_kernel.KERNELS[dtype]]
-    if evals != 2 * (1 + SIMS) or captured != CONVS_PER_EVAL * evals:
-        raise AssertionError(f"warm-up and capture made {evals} evaluations and {captured} "
-                             f"kernel launches")
+    captured_steps = scs_step_kernel.launch_count[scs_step_kernel.KERNEL]
+    if (evals != 2 * (1 + SIMS) or captured != CONVS_PER_EVAL * evals
+            or captured_steps != evals):
+        raise AssertionError(f"warm-up and capture made {evals} evaluations, {captured} "
+                             f"hex-conv and {captured_steps} SCS step kernel launches")
     replayed, launched = [], []
     for move in range(MOVES):
         row = gsp.move_count.long()
@@ -679,7 +834,7 @@ def selfplay_leg(filters, dtype, batch, card):
         f"kernels, busy {busy:.1f} ms (idle {100 * (1 - busy / 1e3 / steady_g):.1f}% of a "
         f"{steady_g:.4f} s replayed move); hex conv {hex_ms:.1f} ms in {hex_n} launches "
         f"({100 * hex_ms / busy:.1f}% of busy); {gaps}  [{card}]")
-    return launches, (1 + SIMS) * MOVES, seconds, replayed
+    return launches, (1 + SIMS) * MOVES, seconds, replayed, steps
 
 
 def backward_check(dtype, batch, rows, cols, cin, cout, gen):
@@ -3042,6 +3197,9 @@ def main() -> int:
                 f"{sums['bound_ms']:.4f} ms ({sums['bound_by']}), "
                 f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of bound  [{card}]")
 
+    # --- 18. the SCS env's step kernel against its plain version
+    scs_step_lines = scs_step_check(card)
+
     # --- 6. backward kernel check, at the shapes of one training update
     dw_sums = {}
     per = launches_per_update()
@@ -3107,14 +3265,17 @@ def main() -> int:
 
     # --- 4./5. self-play legs
     kernels = []
+    scs_step_launches = {}
     for filters, dtype_name, batch in LEGS:
-        launches, evals, seconds, replayed = selfplay_leg(
+        launches, evals, seconds, replayed, steps = selfplay_leg(
             filters, getattr(torch, dtype_name), batch, card)
+        scs_step_launches[f"{filters}f {dtype_name} B={batch}"] = steps
         steady = statistics.median(seconds[1:])
         log(f"leg {filters}f {dtype_name} B={batch}: first move {seconds[0]:.4f} s, "
             f"steady {steady:.4f} s/move (median of moves 2-{MOVES}), "
             f"{batch * SIMS / steady:.1f} env-steps/s; {evals} network evaluations, "
-            f"{launches} kernel launches; replayed {statistics.median(replayed[1:]):.4f} "
+            f"{launches} hex-conv and {steps} SCS step kernel launches; replayed "
+            f"{statistics.median(replayed[1:]):.4f} "
             f"s/move  [{card}]")
         worst, sums = per_dtype[dtype_name]
         kernels.append({
@@ -3185,6 +3346,22 @@ def main() -> int:
         entry["heads"] = {"launches": head_counts[entry["name"]]}
         entry["data_parallel"] = {"launches_rank0": dp_counts[entry["name"]]}
 
+    # The SCS step kernel: launches in the self-play legs' eager moves (phases
+    # 4 and 5); times at contested256's shape, and at every shape of phase 18.
+    at = next(line for line in scs_step_lines if line["scenario"] == "open_field_5")
+    kernels.append({
+        "name": "scs_step_kernel",
+        "route": "cuda",
+        "source": SCS_STEP_SOURCE,
+        "replaces": SCS_STEP_REPLACES,
+        "launches": sum(scs_step_launches.values()),
+        "by_leg": scs_step_launches,
+        "max_abs_err": 0.0,
+        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": "bytes",
+        "at": f"{at['scenario']} B={at['batch']}",
+        "shapes": scs_step_lines,
+    })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -15,13 +15,17 @@ in at most ``stage_passes`` passes after the first, through
 ``graphs.run_while`` so that a captured move holds them as one while-node.
 Neighbor reads are plain gathers through the static neighbor tables.
 
-On the card, outside a capture, ``step`` replays a CUDA graph of that same
-body (``graphs.ReplayCache``, one graph per batch size and thread, captured
-on first use): one launch instead of ~1,000 and no host read per pass.
-Under a capture (the self-play move's graph) and inside its eager warm-up
-(an open ``graphs.overflow_into``), and on the CPU, it runs the body
-eagerly.  A replay's overflow of the stage machine raises at the env's
-next ``step`` or ``terminal_value``.
+That eager body, ``_step``, is the plain version: the CPU takes it.  For a
+state on the card ``step`` launches one hand-written kernel instead
+(``ops/cuda/csrc/scs_step.cu``: a warp per game runs its own applier and its
+stage machine to rest), under a capture as elsewhere: one kernel instead of
+~850-1,400 and no while-node or host read.  The kernel's overflow of the
+stage machine is set straight into the capture's flag under a capture or an
+open ``graphs.overflow_into`` (``graphs.open_overflow_flag``); elsewhere it
+raises at the env's next ``step`` or ``terminal_value``
+(``graphs.DeferredOverflow``).
+Counters ``nuzero.env.step_kernel`` and ``nuzero.env.step_eager``
+(``profiling.count``) say which path each call took.
 
 ``randomize_vp=True`` draws each game's victory-point cells in ``init``
 (uniform over each owner's board half), as the JAX engine's ``init(key)``
@@ -42,7 +46,9 @@ import torch
 from nuzero_tpu_torch.envs.base import Env, select_state
 from nuzero_tpu_torch.envs.scs.hexgrid import neighbor_tables
 from nuzero_tpu_torch.envs.scs.scenario import Scenario, board_sides
+from nuzero_tpu_torch.ops.cuda.scs_step_kernel import scs_step_cuda
 from nuzero_tpu_torch.utils import graphs
+from nuzero_tpu_torch.utils.profiling import count
 
 N_STATS = 3  # attack, defense, movement (ref SCS_Game.py:76)
 N_STATUSES = 3  # available, moved, attacked (ref SCS_Game.py:75)
@@ -240,7 +246,15 @@ class SCSGame(Env):
         self._iota_c = torch.arange(C, device=self.device).view(1, 1, C, 1)
         self._iota_k = torch.arange(K, device=self.device).view(1, 1, 1, K)
         self._iota_u = torch.arange(self.U, device=self.device).view(1, -1)
-        self._step_graphs = graphs.ReplayCache("nuzero.env.step_graph")
+        # The step kernel's tables (scs_step_kernel.scs_step_cuda's layout).
+        self._kernel_ftab = torch.cat([
+            self.t_attack.reshape(-1), self.t_defense.reshape(-1), self.t_cost.reshape(-1),
+            self.min_nbr_cost.reshape(-1), self.u_attack, self.u_defense, self.u_allowance])
+        self._kernel_itab = torch.cat([
+            self._nbr_flat.reshape(-1).to(I32), self.nbr_ok.reshape(-1).to(I32),
+            self.reinf_turn.reshape(-1), self.reinf_count])
+        self._kernel_recip_vp = tuple(_recip(max(n, 1)) for n in scenario.n_vp)
+        self._overflow = graphs.DeferredOverflow()
 
     # ------------------------------------------------------------------ #
     # helpers                                                            #
@@ -353,7 +367,7 @@ class SCSGame(Env):
         return state.terminal
 
     def terminal_value(self, state: SCSState) -> torch.Tensor:
-        self._step_graphs.check()
+        self._overflow.check()
         return state.terminal_value
 
     # -- legality ------------------------------------------------------- #
@@ -446,13 +460,22 @@ class SCSGame(Env):
     # -- stepping -------------------------------------------------------- #
 
     def step(self, state: SCSState, action: torch.Tensor) -> SCSState:
-        """``_step``, through the env's graphs of it (module docstring)."""
-        return SCSState(*self._step_graphs(
-            self._step_fields, *(getattr(state, f) for f in _FIELDS), action.to(I32)))
-
-    def _step_fields(self, *tensors):
-        out = self._step(SCSState(*tensors[:-1]), tensors[-1])
-        return [getattr(out, f) for f in _FIELDS]
+        """``_step``: on the card one launch of its kernel, on the CPU the
+        eager body (module docstring)."""
+        if state.stage.device.type != "cuda":
+            count("nuzero.env.step_eager")
+            return self._step(state, action)
+        self._overflow.check()
+        what = f"the SCS stage machine's {self.stage_passes} passes"
+        into = graphs.open_overflow_flag(what)
+        fields, overflow = scs_step_cuda(
+            [getattr(state, f) for f in _FIELDS], action.to(I32), self._kernel_ftab,
+            self._kernel_itab, (self.R, self.C, self.K, self.S), self.scenario.turns,
+            self.stage_passes, self._kernel_recip_vp, overflow=into)
+        if into is None:
+            self._overflow.report(overflow, what)
+        count("nuzero.env.step_kernel")
+        return SCSState(*fields)
 
     def _step(self, state: SCSState, action: torch.Tensor) -> SCSState:
         """The transition: every game of the batch plays its action."""

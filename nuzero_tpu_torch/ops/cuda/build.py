@@ -133,11 +133,29 @@ def graph_loop_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def scs_step_library() -> ctypes.CDLL:
+    """The SCS env's step kernel (``csrc/scs_step.cu``), built on first call."""
+    lib = ctypes.CDLL(build("scs_step", ("scs_step.cu",)))
+    pointers = ctypes.POINTER(ctypes.c_void_p)
+    lib.scs_step.argtypes = [
+        pointers, ctypes.POINTER(ctypes.c_longlong), pointers,
+        ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 7, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.scs_step.restype = ctypes.c_int
+    return lib
+
+
+#: Every kernel library by name, with its loader (the source each builds).
+LIBRARIES = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library,
+             "graph_loop": graph_loop_library, "scs_step": scs_step_library}
+
+
 def build_all() -> dict:
-    """Build every kernel library at once, one ``nvcc`` per source running
-    side by side; returns {library name: CDLL}."""
-    loaders = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library,
-               "graph_loop": graph_loop_library}
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        futures = {name: pool.submit(load) for name, load in loaders.items()}
+    """Build every kernel library at once (``LIBRARIES``), one ``nvcc`` per
+    source running side by side; returns {library name: CDLL}."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(load) for name, load in LIBRARIES.items()}
         return {name: f.result() for name, f in futures.items()}

@@ -28,23 +28,21 @@ loops do not nest.  One while-node per loop, rather than one if-node per
 trip, keeps the host's cost of launching the graph small: it grows with
 the conditional nodes the graph holds.
 
-``ReplayCache`` replays a pure function of tensors (the SCS env's step) as
-a CUDA graph where it is called eagerly on the card: captured on first use
-at each input shape, per thread, with its bounded loops recording into the
-graph's own flag, which the next call reads.
+A kernel that bounds its own loop sets a flag itself:
+``open_overflow_flag(what)`` hands it the flag that ``overflowed`` would OR
+into, and ``DeferredOverflow`` carries the flag of an eager call on the card
+past the call without a host read, to the caller's next call (the SCS env's
+step kernel).
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import threading
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional
 
 import torch
-
-from nuzero_tpu_torch.utils.profiling import count
 
 
 class _ThreadState(threading.local):
@@ -75,22 +73,19 @@ def capturing() -> bool:
 
 @contextlib.contextmanager
 def capture(graph: torch.cuda.CUDAGraph, pool=None,
-            overflow: Optional[torch.Tensor] = None, capture_error_mode: str = "global"):
+            overflow: Optional[torch.Tensor] = None):
     """``torch.cuda.graph(graph, pool=pool)`` in which ``run_while`` records
     while-nodes and ``overflowed`` records into ``overflow`` (a 0-d bool
     tensor on the device, allocated before the capture).  The bodies'
     tensors live in a ``torch.cuda.MemPool`` that ``graph.body_pool`` keeps
-    for the graph's lifetime.  ``capture_error_mode="thread_local"`` lets
-    other threads use the card meanwhile, short of synchronizing the whole
-    device.  Captures through here run one at a time."""
+    for the graph's lifetime.  Captures through here run one at a time."""
     main, bodies = torch.cuda.Stream(), torch.cuda.Stream()
     if main.cuda_stream == bodies.cuda_stream:
         raise RuntimeError("could not get two streams for a capture")
     flags = overflow_into(overflow) if overflow is not None else contextlib.nullcontext()
     with _capture_lock:
         graph.body_pool = torch.cuda.MemPool()
-        with torch.cuda.graph(graph, pool=pool, stream=main,
-                              capture_error_mode=capture_error_mode), flags:
+        with torch.cuda.graph(graph, pool=pool, stream=main), flags:
             _state.captures.append([graph.body_pool, bodies, False])
             try:
                 yield graph
@@ -173,119 +168,48 @@ def overflowed(cond: torch.Tensor, what: str) -> None:
         raise OverflowError(f"{what} ran past its bound")
 
 
-def _on_card(inputs: Sequence[torch.Tensor]) -> bool:
-    """Whether every input lies on one CUDA device."""
-    dev = inputs[0].device
-    return dev.type == "cuda" and all(t.device == dev for t in inputs)
+def open_overflow_flag(what: str) -> Optional[torch.Tensor]:
+    """The flag that ``overflowed`` would OR into here, for a kernel that
+    sets it itself (and never clears it), with ``what`` recorded against it;
+    None outside ``overflow_into``, where the caller reports its own flag.
+    Under a capture without a flag it raises, as ``overflowed`` does."""
+    if _state.flags:
+        flag, whats = _state.flags[-1]
+        whats.append(what)
+        return flag
+    if capturing():
+        raise RuntimeError(f"{what}: captured without an overflow flag")
+    return None
 
 
-class _Replayed:
-    """One captured graph of ``ReplayCache``: its static inputs and outputs,
-    its overflow flag with a pinned host copy, and the event after which
-    that copy holds the last replay's flag."""
+class DeferredOverflow:
+    """The overflow flags of a caller's eager calls on the card, each read at
+    the caller's next call on the same thread instead of at once.
 
-    __slots__ = ("graph", "inputs", "outputs", "flag", "host_flag", "done", "whats", "pending")
+    ``report(flag, what)`` after an eager call (outside ``overflow_into``)
+    copies the 0-d bool device ``flag`` to pinned host memory behind an
+    event.  ``check()``, which the caller makes before its next call, waits
+    for that event (the call's work, not work queued after it) and raises
+    ``overflowed``'s ``OverflowError`` if the flag was set, once."""
 
-
-class ReplayCache:
-    """``fn(*inputs) -> sequence of tensors``, a pure function of its tensor
-    inputs (it reads no other state that changes, draws no random numbers,
-    returns tensors of its own), called as ``cache(fn, *inputs)``.
-
-    Eager, ``fn(*inputs)``, where the inputs are not all on one CUDA device,
-    where a capture is underway on the current stream (``capturing()``), or
-    inside ``overflow_into`` (the eager warm-up of a capture): a caller
-    being captured records ``fn``'s own work into its graph.  Otherwise the
-    call replays a CUDA graph of ``fn``, captured on the first call at the
-    inputs' shapes and dtypes: the inputs are copied into the graph's static
-    buffers, the graph replays, and the call returns fresh copies of its
-    outputs, so nothing returned aliases the graph or the inputs.  The
-    graphs are per thread (two threads never share a graph's buffers), at
-    most ``SIZE`` of them; the least recently used is released first.
-    ``counter`` + ``.capture`` / ``.replay`` count the calls of each kind
-    (``profiling.count``: calls, no time).
-
-    A bound that ``fn`` reaches (``overflowed``) sets the graph's device
-    flag.  The flag is copied to pinned host memory after each replay, and
-    ``check()``, which each call makes first, raises the eager step's
-    ``OverflowError`` from it: it waits for the replay, not for work queued
-    after it."""
-
-    SIZE = 4
-
-    def __init__(self, counter: str):
-        self.counter = counter
+    def __init__(self):
         self._local = threading.local()
 
-    def _graphs(self) -> collections.OrderedDict:
-        graphs = getattr(self._local, "graphs", None)
-        if graphs is None:
-            graphs = self._local.graphs = collections.OrderedDict()
-        return graphs
-
     def check(self) -> None:
-        """Raise if a replay on this thread ran a loop past its bound (each
-        overflow once; nothing to check inside a capture)."""
-        graphs = getattr(self._local, "graphs", None)
-        if not graphs or capturing():
+        local = self._local
+        pending = getattr(local, "pending", None)
+        if pending is None or capturing():
             return
-        for g in graphs.values():
-            if g.pending:
-                g.pending = False
-                g.done.synchronize()
-                if bool(g.host_flag):
-                    raise OverflowError(f"{' and '.join(g.whats)} ran past its bound")
+        local.pending = None
+        pending[0].synchronize()
+        if bool(local.host):
+            raise OverflowError(f"{pending[1]} ran past its bound")
 
-    def __call__(self, fn: Callable, *inputs: torch.Tensor) -> list:
-        self.check()
-        if not _on_card(inputs) or capturing() or _state.flags:
-            return list(fn(*inputs))
-        dev = inputs[0].device
-        key = (dev, *((t.shape, t.dtype) for t in inputs))
-        graphs = self._graphs()
-        g = graphs.get(key)
-        if g is None:
-            g = graphs[key] = self._capture(fn, inputs)
-            if len(graphs) > self.SIZE:
-                old = graphs.popitem(last=False)[1]
-                with _capture_lock:
-                    old.inputs = old.outputs = None
-                    old.graph.reset()
-                    del old
-            count(self.counter + ".capture")
-        else:
-            graphs.move_to_end(key)
-            torch._foreach_copy_(g.inputs, inputs)
-            count(self.counter + ".replay")
-        with torch.cuda.device(dev):
-            g.graph.replay()
-            g.host_flag.copy_(g.flag, non_blocking=True)
-            g.done.record()
-            g.pending = True
-            return [t.clone() for t in g.outputs]
-
-    @staticmethod
-    def _capture(fn: Callable, inputs) -> _Replayed:
-        """The graph of ``fn`` on copies of ``inputs``, after one eager call on
-        a side stream (as ``torch.cuda.graphs`` asks; its overflow is the
-        replay's to report)."""
-        dev = inputs[0].device
-        g = _Replayed()
-        g.inputs = [t.clone(memory_format=torch.contiguous_format) for t in inputs]
-        g.flag = torch.zeros((), dtype=torch.bool, device=dev)
-        g.host_flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
-        g.done = torch.cuda.Event()
-        g.pending = False
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), overflow_into(torch.zeros_like(g.flag)):
-                fn(*g.inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            g.graph = torch.cuda.CUDAGraph()
-            with capture(g.graph, capture_error_mode="thread_local"), \
-                    overflow_into(g.flag) as whats:
-                g.flag.zero_()
-                g.outputs = list(fn(*g.inputs))
-        g.whats = list(dict.fromkeys(whats))
-        return g
+    def report(self, flag: torch.Tensor, what: str) -> None:
+        local = self._local
+        if getattr(local, "host", None) is None:
+            local.host = torch.zeros((), dtype=torch.bool, pin_memory=True)
+            local.done = torch.cuda.Event()
+        local.host.copy_(flag, non_blocking=True)
+        local.done.record(torch.cuda.current_stream(flag.device))
+        local.pending = (local.done, what)
