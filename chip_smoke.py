@@ -36,10 +36,9 @@ Phases, each of which must pass:
    ``training=True``; random weights from a seed).  Each leg checks the
    move counter, the legality of every played action, that policy targets
    are distributions over the legal actions, and that the kernel ran
-   17 times per network evaluation; it lists the host synchronizations of
-   the first move by site (``sync_sites``, sync debug mode "warn"), and
-   plays one more move under ``torch.profiler`` (device kernels, busy
-   time, idle share, the hex conv's share).  Then the graphed move: from
+   17 times per network evaluation, and plays one more move under
+   ``torch.profiler`` (device kernels, busy time, idle share, the hex
+   conv's share).  Then the graphed move: from
    the same initial state and generator state, ``capture_selfplay_step``
    and four replays, each under sync debug mode "error" (no host sync
    inside a replay), each equal bit for bit to the eager move of the same
@@ -247,12 +246,6 @@ import sys
 import tempfile
 import time
 
-from nuzero_tpu_torch.ops.cuda.measure import (
-    BACKWARD_RAGGED, CONVS_PER_EVAL, RAGGED, SWEEP_BATCH, SWEEP_ITERS, SWEEP_SIZES, TRAIN_BATCH,
-    TRAIN_ITERS, bound, card_line, conv_shapes, graph_ms, launches_per_update,
-    library_backward, sweep_conv_shapes, time_ms,
-)
-
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIMS = 30
 MOVES = 4
@@ -311,9 +304,228 @@ ARENA_BOTH = {"scenario": "open_field_5.yml", "games": 256, "max_moves": 48}
 # Phase 12: the training run's cut of ttt_default.yaml (600 steps).
 TTT_STEPS = 50
 
+# Shapes, peaks and bounds of the kernel checks, and the launches they expect.
+CONVS_PER_EVAL = 17
+# Recurrent iterations of the training recipe (train_iterations: [4]) and
+# its batch: one update's hex convs see B=256 5x5 boards, M = 6400 pixels.
+TRAIN_ITERS, TRAIN_BATCH = 4, 256
+# Peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 on the tensor
+# cores, f32 on the CUDA cores (the f32 kernel keeps f32 rounding, so TF32
+# is not its roofline), and device memory.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+# (B, H, W, Cin, Cout) of the f32 kernel's ragged cases: odd Cin, pixel
+# counts off the block size, odd and even widths, Cout of 1 and 42.
+RAGGED = ((3, 7, 7, 21, 16), (2, 6, 6, 42, 1), (5, 5, 8, 64, 42), (4, 5, 5, 86, 70),
+          (1, 9, 9, 150, 96))
+# (B, H, W, Cin, Cout) of forward convs whose backward is checked off the
+# training path: dW with Cin 1 and 21 and Cout 1 and 342, dX (the forward
+# kernel with Cin and Cout swapped) with Cin 1 and 21 and Cout 342, 150,
+# 138 and 86; odd widths; pixel counts off the dW kernel's 16-pixel chunk.
+BACKWARD_RAGGED = ((4, 5, 5, 64, 1), (3, 5, 5, 138, 21), (2, 5, 5, 342, 256),
+                   (3, 7, 7, 150, 64), (5, 3, 9, 86, 21), (2, 6, 6, 21, 1),
+                   (1, 5, 7, 1, 342), (3, 5, 5, 256, 86))
+# The transfer sweeps (``evaluation/sweeps.py``: the committed 64-filter
+# solo-scout nets, f32): B=64 games on boards of 5x5 to 15x15, 67
+# observation channels and 12 policy planes, at 2, 6 and 24 iterations.
+SWEEP_BATCH = 64
+SWEEP_SIZES = (5, 7, 9, 11, 13, 15)
+SWEEP_ITERS = (2, 6, 24)
+
 
 def log(*args):
     print(*args, flush=True)
+
+
+def conv_shapes(filters: int, obs_channels: int = 86, policy_channels: int = 21,
+                iterations: int = 2):
+    """(Cin, Cout, count) of the hex convs of one RecurrentNet evaluation
+    at ``iterations`` iterations, 2 blocks, recall."""
+    from nuzero_tpu_torch.networks.blocks import _ramp
+
+    shapes = [(obs_channels, filters, 1), (filters + obs_channels, filters, iterations),
+              (filters, filters, 4 * iterations)]
+    for head in (_ramp(filters, policy_channels, 2), _ramp(filters, 1, 4)):
+        ins = [filters] + list(head[:-1])
+        shapes += [(i, o, 1) for i, o in zip(ins, head)]
+    assert sum(n for _, _, n in shapes) == 7 + 5 * iterations
+    return shapes
+
+
+def value_head_conv_shapes(head: str, filters: int):
+    """(Cin, Cout) of the hex convs of value head ``head`` on a hex trunk
+    of ``filters`` channels, read off the head that ``make_value_head``
+    builds, in the order it holds them, which is their call order.  The
+    heads' 1x1, grouped and depthwise convs are no hex convs and launch no
+    kernel."""
+    from nuzero_tpu_torch.networks.blocks import HexConv, make_value_head
+
+    module = make_value_head(head, filters, hex=True, board_shape=(5, 5))
+    return [tuple(m.weight.shape[1:]) for m in module.modules() if isinstance(m, HexConv)]
+
+
+def convs_per_evaluation(head: str = "reduce", iterations: int = 2) -> int:
+    """Hex convs of one hex RecurrentNet evaluation (2 blocks, recall) with
+    value head ``head``: the stem, 5 per iteration, the policy ramp's 2 and
+    the head's."""
+    return 3 + 5 * iterations + len(value_head_conv_shapes(head, 64))
+
+
+def sweep_conv_shapes(iterations: int = 2):
+    """(Cin, Cout, count) of one evaluation of the sweeps' nets."""
+    return conv_shapes(64, obs_channels=67, policy_channels=12, iterations=iterations)
+
+
+def launches_per_update(iterations: int = TRAIN_ITERS) -> dict:
+    """Kernel launches of one learner update with the progressive loss off
+    (one forward at ``iterations``): every hex conv launches the forward
+    kernel once forward and the dW kernel once backward, and every conv but
+    the stem (whose input is the observation) the forward kernel once more
+    for dX."""
+    convs = 7 + 5 * iterations
+    return {"forward": convs, "dx": convs - 1, "dw": convs}
+
+
+def launches_per_progressive_update(iterations: int, n: int, k: int) -> dict:
+    """Kernel launches of one learner update with the progressive loss on
+    and its draws ``(n, k)`` (``training/learner.py:progressive_draws``):
+    ``launches_per_update`` for the full forward, plus a second forward of
+    ``n + k`` iterations whose thought is detached at iteration ``n`` (none
+    where n is 0).  Its backward reaches only the convs after the detach
+    and the heads (6 convs), and no dX where a conv's input is detached
+    (the first conv of iteration ``n``, the recall on the detached thought
+    and the observation) or is the observation (the stem)."""
+    base = launches_per_update(iterations)
+    convs = 7 + 5 * (n + k)
+    if n == 0:
+        dw, dx = convs, convs - 1
+    else:
+        dw, dx = 5 * k + 6, 5 * k + 5
+    return {"forward": base["forward"] + convs, "dx": base["dx"] + dx, "dw": base["dw"] + dw}
+
+
+def bound(dtype_name, batch, rows, cols, cin, cout):
+    """The least time (ms) the card could take for one hex conv, and what
+    bounds it: 2*7*M*Cin*Cout operations at the dtype's peak, or x, W and y
+    each moved once at the memory rate."""
+    m = batch * rows * cols
+    size = 2 if dtype_name == "bfloat16" else 4
+    ops_ms = 2 * 7 * m * cin * cout / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = (m * cin + 7 * cin * cout + m * cout) * size / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` over a loop of ``reps`` calls, by CUDA events:
+    device time, or the host's rate of calls where that is slower."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` as ``reps`` calls captured in one CUDA graph and
+    replayed: device time without the host's rate of calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def dual3x3_weights(weights):
+    """The 7 taps ``[7, Cin, Cout]`` embedded in an even-column and an
+    odd-column 3x3 kernel, stacked on the output axis: ``[2*Cout, Cin, 3, 3]``
+    (OIHW; even-column outputs first)."""
+    from nuzero_tpu_torch.ops.hexconv import hex_neighbor_offsets
+
+    _, cin, cout = weights.shape
+    k = weights.new_zeros(2, 3, 3, cin, cout)
+    for parity in (0, 1):
+        offs = hex_neighbor_offsets(parity)
+        k[parity, offs[:, 0] + 1, offs[:, 1] + 1] = weights
+    return k.permute(0, 4, 3, 1, 2).reshape(2 * cout, cin, 3, 3)
+
+
+def hex_conv_dual3x3(x, weights):
+    """The JAX package's XLA path (``nuzero_tpu/ops/hexconv.py:hex_conv``)
+    as one library call, the yardstick timed beside the kernel: a dense
+    3x3 ``conv2d`` with both parity kernels on the output axis, then each
+    output column taken from its parity's half.  It does 18 multiply-adds
+    per pixel and channel pair where the hex conv needs 7."""
+    import torch
+
+    B, H, W, _ = x.shape
+    cout = weights.shape[-1]
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), dual3x3_weights(weights), padding=1)
+    y = y.permute(0, 2, 3, 1).reshape(B, H, W, 2, cout)
+    odd = (torch.arange(W, device=x.device) % 2).bool().view(1, 1, W, 1)
+    return torch.where(odd, y[..., 1, :], y[..., 0, :])
+
+
+def dual3x3_weight_grad_to_taps(dk, cin: int, cout: int):
+    """The hex weight gradient [7, Cin, Cout] from the gradient of the dual
+    3x3 weights ``[2*Cout, Cin, 3, 3]`` (``dual3x3_weights``): each tap's
+    weights sit in both parity kernels, so its gradient is the sum of the
+    two."""
+    from nuzero_tpu_torch.ops.hexconv import hex_neighbor_offsets
+
+    dk = dk.reshape(2, cout, cin, 3, 3)
+    total = 0
+    for parity in (0, 1):
+        offs = hex_neighbor_offsets(parity)
+        total = total + dk[parity, :, :, offs[:, 0] + 1, offs[:, 1] + 1].permute(2, 1, 0)
+    return total
+
+
+def library_backward(x, weights, dy):
+    """The JAX package's backward as cuDNN calls (the library yardstick of
+    the dX and dW kernels): the VJP of the dual 3x3 conv, dY stacked as
+    [dY on even columns, dY on odd columns] against ``dual3x3_weights``.
+    Returns (dx_call, dw_call, to_hex): the two ``convolution_backward``
+    calls, input-grad and weight-grad, on prepared NCHW views, and a map of
+    their outputs to the hex layout [B, H, W, Cin] and [7, Cin, Cout]."""
+    import torch
+
+    cin, cout, W = x.shape[3], dy.shape[3], x.shape[2]
+    odd = (torch.arange(W, device=x.device) % 2).to(dy.dtype).view(1, 1, W, 1)
+    dy2 = torch.cat([dy * (1 - odd), dy * odd], dim=3).permute(0, 3, 1, 2)
+    xn, k = x.permute(0, 3, 1, 2), dual3x3_weights(weights)
+    back = torch.ops.aten.convolution_backward
+
+    def call(mask):
+        return back(dy2, xn, k, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+    def to_hex(dx, dk):
+        return dx.permute(0, 2, 3, 1), dual3x3_weight_grad_to_taps(dk, cin, cout)
+
+    return (lambda: call([True, False, False])[0], lambda: call([False, True, False])[1],
+            to_hex)
 
 
 def sass_opcodes(sass: str, kernel: str, opcodes) -> dict:
@@ -365,7 +577,7 @@ def kernel_check(dtype, batch, rows, cols, cin, cout, gen):
     import torch
 
     from nuzero_tpu_torch.ops.cuda.hexconv_kernel import hex_conv_cuda
-    from nuzero_tpu_torch.ops.hexconv import dual3x3_weights, hex_conv_dual3x3, hex_conv_plain
+    from nuzero_tpu_torch.ops.hexconv import hex_conv_plain
 
     x = torch.randn(batch, rows, cols, cin, device="cuda", generator=gen).to(dtype)
     w = (torch.randn(7, cin, cout, device="cuda", generator=gen) / (7 * cin) ** 0.5).to(dtype)
@@ -501,41 +713,6 @@ def profile_run(fn, gaps=False):
     return out + (idle_gaps(kernels),) if gaps else out
 
 
-def sync_sites(fn):
-    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` -> (its
-    result, {site: count} of the host synchronizations it made).  A site is
-    the innermost frame in this checkout outside ``utils/graphs.py``, whose
-    ``run_while`` and ``overflowed`` read for their callers."""
-    import collections
-    import traceback
-    import warnings
-
-    import torch
-
-    sites = collections.Counter()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
-            return
-        frames = [f for f in traceback.extract_stack()[:-1]
-                  if f.filename.startswith(REPO) and not f.filename.endswith("graphs.py")]
-        where = frames[-1] if frames else None
-        sites[f"{os.path.relpath(where.filename, REPO)}:{where.lineno}" if where
-              else f"{filename}:{lineno}"] += 1
-
-    shown = warnings.showwarning
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            result = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            warnings.showwarning = shown
-    return result, dict(sites)
-
-
 def check_policy(policy, legal):
     """Raise unless each row of ``policy`` is a distribution over ``legal``."""
     import torch
@@ -596,7 +773,6 @@ def scs_step_check(card):
     import torch
 
     from nuzero_tpu_torch.ops.cuda import scs_step_kernel
-    from nuzero_tpu_torch.ops.cuda.measure import PEAK_BYTES
 
     def fields(state):
         return [getattr(state, f.name) for f in dataclasses.fields(state)]
@@ -726,7 +902,7 @@ def selfplay_leg(filters, dtype, batch, card):
     sp = fresh_state()
     torch.cuda.synchronize()
 
-    # --- eager moves: legality, launches, host syncs of the first move
+    # --- eager moves: legality, launches
     seconds, eager = [], []
     bi = torch.arange(batch, device="cuda")
     hexconv_kernel.reset_launch_count()
@@ -737,10 +913,7 @@ def selfplay_leg(filters, dtype, batch, card):
         row = sp.move_count.long()
         env.watch = sp.games
         t0 = time.perf_counter()
-        if move == 0:
-            (finished, stats), sites = sync_sites(lambda: play_in_place(step, variables, sp))
-        else:
-            finished, stats = play_in_place(step, variables, sp)
+        finished, stats = play_in_place(step, variables, sp)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if int(sp.total_moves) != before + batch:
@@ -754,12 +927,9 @@ def selfplay_leg(filters, dtype, batch, card):
             raise AssertionError("non-finite root values")
         env.watch = env.played_legal = None
         eager.append(snapshot(sp, finished, stats))
-        log(f"leg {label} move {move}: {seconds[-1]:.4f} s"
-            + (" (host syncs counted)" if move == 0 else "")
-            + f", root_value_mean {float(stats['root_value_mean']):+.4f}, "
+        log(f"leg {label} move {move}: {seconds[-1]:.4f} s, "
+            f"root_value_mean {float(stats['root_value_mean']):+.4f}, "
             f"tree_nodes_mean {float(stats['tree_nodes_mean']):.2f}")
-    log(f"host syncs of eager move 0 ({label}; sync debug mode, by site): "
-        + ", ".join(f"{k} x{v}" for k, v in sorted(sites.items(), key=lambda kv: -kv[1])))
     counts = dict(hexconv_kernel.launch_count)
     steps = scs_step_kernel.launch_count[scs_step_kernel.KERNEL]
     if evals != (1 + SIMS) * MOVES:
@@ -1682,7 +1852,6 @@ def transfer_check(card):
     from nuzero_tpu_torch.evaluation import sweeps
     from nuzero_tpu_torch.evaluation.manager import TestManager
     from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-    from nuzero_tpu_torch.ops.cuda.measure import SWEEP_ITERS, SWEEP_SIZES
     from nuzero_tpu_torch.utils.checkpoint import restore_checkpoint
     from nuzero_tpu_torch.utils import profiling
 
@@ -2459,9 +2628,6 @@ def expected_cli_launches(cfg, sims, captures, updates):
     ``run``) -> (forward kernel, dW kernel)."""
     import torch
 
-    from nuzero_tpu_torch.ops.cuda.measure import (
-        launches_per_progressive_update, launches_per_update,
-    )
     from nuzero_tpu_torch.training.learner import progressive_draws
 
     pred, m = cfg.recurrent.pred_iterations[0], cfg.recurrent.train_iterations[0]
@@ -2761,7 +2927,6 @@ def heads_phase(card):
 
     from nuzero_tpu_torch.networks.convert import recurrent_net_state_dict
     from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-    from nuzero_tpu_torch.ops.cuda.measure import convs_per_evaluation, value_head_conv_shapes
     from nuzero_tpu_torch.training.learner import TrainState
 
     t_phase = time.perf_counter()

@@ -24,8 +24,6 @@ stage machine is set straight into the capture's flag under a capture or an
 open ``graphs.overflow_into`` (``graphs.open_overflow_flag``); elsewhere it
 raises at the env's next ``step`` or ``terminal_value``
 (``graphs.DeferredOverflow``).
-Counters ``nuzero.env.step_kernel`` and ``nuzero.env.step_eager``
-(``profiling.count``) say which path each call took.
 
 ``randomize_vp=True`` draws each game's victory-point cells in ``init``
 (uniform over each owner's board half), as the JAX engine's ``init(key)``
@@ -48,7 +46,6 @@ from nuzero_tpu_torch.envs.scs.hexgrid import neighbor_tables
 from nuzero_tpu_torch.envs.scs.scenario import Scenario, board_sides
 from nuzero_tpu_torch.ops.cuda.scs_step_kernel import scs_step_cuda
 from nuzero_tpu_torch.utils import graphs
-from nuzero_tpu_torch.utils.profiling import count
 
 N_STATS = 3  # attack, defense, movement (ref SCS_Game.py:76)
 N_STATUSES = 3  # available, moved, attacked (ref SCS_Game.py:75)
@@ -463,7 +460,6 @@ class SCSGame(Env):
         """``_step``: on the card one launch of its kernel, on the CPU the
         eager body (module docstring)."""
         if state.stage.device.type != "cuda":
-            count("nuzero.env.step_eager")
             return self._step(state, action)
         self._overflow.check()
         what = f"the SCS stage machine's {self.stage_passes} passes"
@@ -474,7 +470,6 @@ class SCSGame(Env):
             self.stage_passes, self._kernel_recip_vp, overflow=into)
         if into is None:
             self._overflow.report(overflow, what)
-        count("nuzero.env.step_kernel")
         return SCSState(*fields)
 
     def _step(self, state: SCSState, action: torch.Tensor) -> SCSState:

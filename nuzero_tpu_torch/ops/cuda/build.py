@@ -44,8 +44,8 @@ def _nvcc() -> str:
 
 def library_path(name: str, sources: tuple[str, ...]) -> str:
     """``_build/lib<name>-<hash>.so``, the hash taken over the flags, the
-    ``sources`` (file names under ``csrc/``, or absolute paths) and every
-    ``csrc/*.cuh`` header."""
+    ``sources`` (file names under ``csrc/``) and every ``csrc/*.cuh``
+    header."""
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in [os.path.join(CSRC, n) for n in (*sources, *headers)]:
@@ -56,9 +56,9 @@ def library_path(name: str, sources: tuple[str, ...]) -> str:
 
 
 def build(name: str, sources: tuple[str, ...]) -> str:
-    """Compile ``sources`` (file names under ``csrc/``, or absolute paths)
-    into ``library_path(name, sources)`` unless that file exists; returns
-    its path.  Sources include headers from ``csrc/``."""
+    """Compile ``sources`` (file names under ``csrc/``) into
+    ``library_path(name, sources)`` unless that file exists; returns its
+    path.  Sources include headers from ``csrc/``."""
     out = library_path(name, sources)
     if os.path.exists(out):
         return out
@@ -81,11 +81,10 @@ def build(name: str, sources: tuple[str, ...]) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def hexconv_library(source: str = "hexconv.cu") -> ctypes.CDLL:
-    """The hex-conv kernel library, built on first call; ``source`` is
-    ``csrc/hexconv.cu`` unless another file with the same C interface is
-    named (``tune_f32.py`` times such variants)."""
-    lib = ctypes.CDLL(build("hexconv", (source,)))
+def hexconv_library() -> ctypes.CDLL:
+    """The hex-conv kernel library (``csrc/hexconv.cu``), built on first
+    call."""
+    lib = ctypes.CDLL(build("hexconv", ("hexconv.cu",)))
     fn = lib.hexconv_forward
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -97,11 +96,10 @@ def hexconv_library(source: str = "hexconv.cu") -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def hexconv_dw_library(source: str = "hexconv_dw.cu") -> ctypes.CDLL:
-    """The hex conv's weight-gradient kernels, built on first call;
-    ``source`` is ``csrc/hexconv_dw.cu`` unless another file with the same
-    C interface is named (``tune_dw.py`` times such variants)."""
-    lib = ctypes.CDLL(build("hexconv_dw", (source,)))
+def hexconv_dw_library() -> ctypes.CDLL:
+    """The hex conv's weight-gradient kernels (``csrc/hexconv_dw.cu``),
+    built on first call."""
+    lib = ctypes.CDLL(build("hexconv_dw", ("hexconv_dw.cu",)))
     fn = lib.hexconv_dw
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -352,7 +352,7 @@ int launch(const Params& p, cudaStream_t s) {
 //
 // What bounds it now: feeding the FFMAs.  At 64->64, B=512 the kernel runs
 // at ~25 TFLOP/s, and cuBLAS's f32 GEMM of the same [M, 7 Cin] x [7 Cin, 64]
-// product, with A already gathered, at ~29 (tune_f32.py's gemm column).
+// product, with A already gathered, at ~29 (timed beside it on an H100).
 // Neither loads issued a group ahead, nor fewer shared loads, nor dropping
 // the barrier, nor FFMA orders with fewer register-bank conflicts moved it
 // by more than a few percent.

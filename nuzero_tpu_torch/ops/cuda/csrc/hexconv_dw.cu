@@ -77,7 +77,7 @@ namespace {
 // dw_slices, keeps one wave of blocks whose clusters the card holds at
 // once), and each pays its first chunk's copies, two cluster barriers, the
 // exchange of its 56 KB tile and the reduce kernel: about 10 of a 64->64
-// conv's 22 us (tune_dw.py's timeline, PERF.md).
+// conv's 22 us (per-block phase times of an instrumented copy, PERF.md).
 // ---------------------------------------------------------------------
 namespace f32 {
 
@@ -438,7 +438,7 @@ int cluster_size(int slices) {
 //     ldmatrix and the wgmma of each k16 step and nothing else.  With the
 //     copies in the same warps (the first design) the kernel took 28 us
 //     at 256->256 (B=256, 5x5), of which leaving the wgmmas out saved 4 us
-//     and leaving the copies out 7.5 us (tune_dw.py's diagnostic builds,
+//     and leaving the copies out 7.5 us (diagnostic builds without them,
 //     PERF.md): the warps issuing copies were not feeding the tensor cores;
 //   * registers: the 7 taps' accumulators of a 64 x BN tile are 7*64*BN
 //     f32 values, 128 a consumer thread at BN = 64 with four taps; the

@@ -142,31 +142,30 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_blocks(lib, cin: int, cout: int, code: int) -> int:
-    return lib.hexconv_dw_blocks_per_slice(cin, cout, code)
+def _dw_blocks(cin: int, cout: int, code: int) -> int:
+    return hexconv_dw_library().hexconv_dw_blocks_per_slice(cin, cout, code)
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_capacity(lib, cout: int, w: int, index: int) -> tuple[int, ...]:
+def _dw_capacity(cout: int, w: int, index: int) -> tuple[int, ...]:
+    lib = hexconv_dw_library()
     with torch.cuda.device(index):
         return tuple(lib.hexconv_dw_max_clusters(cout, w, c, 0)
                      for c in range(1, DW_MAX_CLUSTER + 1))
 
 
-def dw_plan(m: int, cin: int, cout: int, dtype: torch.dtype, index: int, w: int,
-            lib=None) -> tuple[int, int, int]:
+def dw_plan(m: int, cin: int, cout: int, dtype: torch.dtype, index: int,
+            w: int) -> tuple[int, int, int]:
     """(slices, pixels per slice, workspace partials) of the dW kernel of
     ``dtype`` on card ``index`` for M = ``m`` pixels of boards ``w`` wide,
-    from the tile rule and occupancy of ``lib`` (the built
-    ``csrc/hexconv_dw.cu`` unless another build is named)."""
-    lib = lib or hexconv_dw_library()
+    from the built library's tile rule and occupancy."""
     code = _DTYPES[dtype]
-    tiles = _dw_blocks(lib, cin, cout, code)
+    tiles = _dw_blocks(cin, cout, code)
     if dtype == torch.bfloat16:
         slices, per = dw_wgmma_slices(m, tiles, _sm_count(index))
     else:
-        slices, per = dw_slices(m, tiles, _dw_capacity(lib, cout, w, index))
-    return slices, per, lib.hexconv_dw_partials(slices, code)
+        slices, per = dw_slices(m, tiles, _dw_capacity(cout, w, index))
+    return slices, per, hexconv_dw_library().hexconv_dw_partials(slices, code)
 
 
 def hex_conv_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -165,33 +165,6 @@ def hex_conv_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dw.reshape(7, Cin, Cout).to(x.dtype)
 
 
-def dual3x3_weights(weights: torch.Tensor) -> torch.Tensor:
-    """The 7 taps ``[7, Cin, Cout]`` embedded in an even-column and an
-    odd-column 3x3 kernel, stacked on the output axis: ``[2*Cout, Cin, 3, 3]``
-    (OIHW; even-column outputs first)."""
-    _, cin, cout = weights.shape
-    k = weights.new_zeros(2, 3, 3, cin, cout)
-    for parity in (0, 1):
-        offs = hex_neighbor_offsets(parity)
-        k[parity, offs[:, 0] + 1, offs[:, 1] + 1] = weights
-    return k.permute(0, 4, 3, 1, 2).reshape(2 * cout, cin, 3, 3)
-
-
-def hex_conv_dual3x3(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """The JAX package's XLA path (``nuzero_tpu/ops/hexconv.py:hex_conv``)
-    as one library call: a dense 3x3 ``conv2d`` with both parity kernels on
-    the output axis, then each output column taken from its parity's half.
-    It does 18 multiply-adds per pixel and channel pair where the hex conv
-    needs 7.  Nothing on the main path calls it: it is the library
-    yardstick that ``chip_smoke.py`` times beside the kernel."""
-    B, H, W, _ = x.shape
-    cout = weights.shape[-1]
-    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), dual3x3_weights(weights), padding=1)
-    y = y.permute(0, 2, 3, 1).reshape(B, H, W, 2, cout)
-    odd = (torch.arange(W, device=x.device) % 2).bool().view(1, 1, W, 1)
-    return torch.where(odd, y[..., 1, :], y[..., 0, :])
-
-
 class HexConvFunction(torch.autograd.Function):
     """The hex conv with its backward on the same device path as its
     forward: the plain versions for CPU (and meta) tensors, the CUDA

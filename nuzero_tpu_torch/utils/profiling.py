@@ -14,9 +14,7 @@ range: the profiler copies such a range (a user annotation) onto the
 card's timeline as a device event, which would count as device work.  A
 torch build without that operation (``_RecordFunctionFast``, private)
 gives no event, and the span still times its block.  The sums are shared
-by every thread of the process; ``reset()`` clears them.  ``count(name)``
-adds a call and no time to a name's sums (a counter, such as the replays
-of the SCS step's graph): it takes nothing from an open span's self time.
+by every thread of the process; ``reset()`` clears them.
 
 The port opens its spans (``nuzero.*``) around host work only, never
 inside code that runs under CUDA-graph capture: there a span would time
@@ -105,21 +103,10 @@ class span:
         return (self.stop - self.start) / 1e9
 
 
-def count(name: str) -> None:
-    """Add a call, and no time, to ``name``'s sums; left out while a
-    profiler runs, as a span is."""
-    if _profiler_enabled():
-        return
-    sums = _here.sums.get(name)
-    if sums is None:
-        sums = _here.sums[name] = [0, 0, 0]
-    sums[0] += 1
-
-
 def snapshot() -> Dict[str, dict]:
     """``{name: {"calls", "total_s", "self_s"}}`` of every span opened with
-    no profiler running and closed, and every count, since the process
-    started or ``reset()``, summed over the threads."""
+    no profiler running and closed since the process started or
+    ``reset()``, summed over the threads."""
     merged: Dict[str, list] = {}
     with _lock:
         for sums in _all_sums:

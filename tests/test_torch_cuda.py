@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    BACKWARD_RAGGED, RAGGED, SWEEP_BATCH, SWEEP_SIZES, conv_shapes, sweep_conv_shapes,
+)
 from nuzero_tpu_torch.envs.scs.game import SCSGame
 from nuzero_tpu_torch.envs.scs.scenario import load_scenario
 from nuzero_tpu_torch.networks.blocks import HexConv, OrthoConv
@@ -20,9 +23,6 @@ from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.ops import hexconv
 from nuzero_tpu_torch.ops.cuda import hexconv_kernel
-from nuzero_tpu_torch.ops.cuda.measure import (
-    BACKWARD_RAGGED, RAGGED, SWEEP_BATCH, SWEEP_SIZES, conv_shapes, sweep_conv_shapes,
-)
 from nuzero_tpu_torch.search import mcts
 from nuzero_tpu_torch.training.selfplay import (
     capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from nuzero_tpu.ops.hexconv import hex_conv as jax_hex_conv
 from nuzero_tpu.ops.hexconv import hex_conv_reference
 from nuzero_tpu.ops.pallas import hex_conv_pallas
@@ -88,7 +89,7 @@ def test_dual3x3_matches_jax_f32(b, h, w, cin, cout):
     path it ports and against the plain version, 1e-5 absolute (the same
     sums, in another order)."""
     x, wt = _inputs(b, h, w, cin, cout, seed=2)
-    got = hexconv.hex_conv_dual3x3(torch.from_numpy(x), torch.from_numpy(wt)).numpy()
+    got = chip_smoke.hex_conv_dual3x3(torch.from_numpy(x), torch.from_numpy(wt)).numpy()
     assert got.shape == (b, h, w, cout) and got.dtype == np.float32
     xla = np.asarray(jax_hex_conv(jnp.asarray(x), jnp.asarray(wt), data_format="NHWC"))
     plain = hexconv.hex_conv_plain(torch.from_numpy(x), torch.from_numpy(wt)).numpy()

@@ -4,6 +4,7 @@ included, without nvcc), its entry points default to the card, and
 back to the CPU; its pure helpers (shapes, bounds, launch counts, the SASS
 check, the library yardstick's layout) are checked here."""
 
+import ast
 import inspect
 import os
 import pathlib
@@ -84,6 +85,67 @@ def test_port_sources_never_name_jax():
         for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
         if pattern.search(p.read_text())
     ]
+    assert offenders == []
+
+
+# What each lower layer of the port may import from the port besides
+# itself: a layer (every module under it) or one module.
+LAYERS_BELOW = {
+    "ops": set(),
+    "native": set(),
+    "parallel": set(),
+    "utils": {"native", "ops"},
+    "search": {"utils"},
+    "networks": {"ops"},
+    "envs": {"config.yaml_io", "ops", "utils"},
+    "evaluation": {"config", "envs", "networks", "ops", "search", "utils"},
+}
+
+
+def _module_name(path):
+    parts = list(path.relative_to(PORT).with_suffix("").parts)
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def _port_imports(path, modules):
+    """The port's modules that ``path`` imports, at module level or inside
+    a function, each as its dotted name under ``nuzero_tpu_torch``: the
+    longest prefix of the imported name that is a module of the port.  The
+    port imports itself by absolute names only: a relative import is
+    yielded as such, and no layer allows it."""
+    def resolve(name):
+        while name not in modules:
+            name = name.rpartition(".")[0]
+        return name
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                top, _, rest = alias.name.partition(".")
+                if top == "nuzero_tpu_torch":
+                    yield resolve(rest)
+        elif isinstance(node, ast.ImportFrom) and node.level:
+            yield f"relative import {'.' * node.level}{node.module or ''}"
+        elif isinstance(node, ast.ImportFrom):
+            top, _, module = node.module.partition(".")
+            if top == "nuzero_tpu_torch":
+                for alias in node.names:
+                    yield resolve(f"{module}.{alias.name}".strip("."))
+
+
+@pytest.mark.parametrize("layer", sorted(LAYERS_BELOW))
+def test_layers_import_only_below(layer):
+    """Every module under a lower layer imports from the port only its own
+    layer and the layers (or modules) below it that ``LAYERS_BELOW`` names,
+    so the import graph points one way."""
+    modules = {_module_name(p) for p in PORT.rglob("*.py")} | {""}
+    allowed = LAYERS_BELOW[layer] | {layer}
+    offenders = sorted(
+        f"{p.relative_to(REPO)} imports {target or 'nuzero_tpu_torch'}"
+        for p in (PORT / layer).rglob("*.py")
+        for target in _port_imports(p, modules)
+        if not any(target == a or target.startswith(a + ".") for a in allowed)
+    )
     assert offenders == []
 
 
@@ -314,7 +376,6 @@ def test_progressive_update_launches(n, k, monkeypatch):
     plain versions on the CPU, which stand where the card launches the
     forward (and dX) and the dW kernel."""
     from nuzero_tpu_torch.ops import hexconv
-    from nuzero_tpu_torch.ops.cuda.measure import launches_per_progressive_update
 
     counts = {"forward": 0, "dx": 0, "dw": 0}
 
@@ -340,7 +401,7 @@ def test_progressive_update_launches(n, k, monkeypatch):
                        torch.Generator())
     # The plain dX is the plain forward on mirrored taps, as dX on the card
     # is the forward kernel: the forward count holds both.
-    want = launches_per_progressive_update(4, n, k)
+    want = chip_smoke.launches_per_progressive_update(4, n, k)
     assert counts == {**want, "forward": want["forward"] + want["dx"]}
 
 
@@ -423,22 +484,6 @@ def test_dw_wgmma_slices_cover_every_pixel(m, tiles):
     assert tiles * slices <= wave
     shorter = -(-steps // (per_steps - 1)) if per_steps > 1 else None
     assert shorter is None or tiles * shorter > wave, "a shorter slice would still fit one wave"
-
-
-def test_timeline_instruments_the_tree_kernel():
-    """timeline_dw.py finds each of its anchors once in csrc/hexconv_dw.cu
-    and marks the f32 kernel's seven phase boundaries; a moved anchor
-    raises instead of timing the wrong spans."""
-    from nuzero_tpu_torch.ops.cuda import timeline_dw
-    from nuzero_tpu_torch.ops.cuda.build import CSRC
-
-    with open(os.path.join(CSRC, "hexconv_dw.cu")) as f:
-        source = f.read()
-    text = timeline_dw.instrument(source)
-    assert [text.count(f"mark({k});") for k in range(7)] == [1] * 7
-    assert len(timeline_dw.PHASES) == 6 and 'extern "C" int set_timeline' in text
-    with pytest.raises(ValueError, match="anchor"):
-        timeline_dw.instrument(source.replace("  // Epilogue.", "  // epilogue"))
 
 
 def test_build_digest_follows_the_headers(tmp_path, monkeypatch):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import convs_per_evaluation, value_head_conv_shapes
 from nuzero_tpu.networks import NetworkManager as JaxManager
 from nuzero_tpu.networks import RecurrentNet as JaxRecurrentNet
 from nuzero_tpu.networks import ResNet as JaxResNet
@@ -37,7 +38,6 @@ from nuzero_tpu_torch.networks.manager import NetworkManager
 from nuzero_tpu_torch.networks.recurrent import RecurrentNet
 from nuzero_tpu_torch.networks.resnet import ResNet
 from nuzero_tpu_torch.ops import hexconv
-from nuzero_tpu_torch.ops.cuda.measure import convs_per_evaluation, value_head_conv_shapes
 
 torch.set_num_threads(2)
 
