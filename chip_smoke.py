@@ -225,6 +225,16 @@ The SCS env's step kernel (``csrc/scs_step.cu``), run after phase 2:
    first 32 steps (kernel, plain and bound in us a step).  Phases 4 and 5
    also count the kernel's launches: one per simulation and one for the
    move, in the eager moves and in the capture with its warm-up.
+   The search's descent kernel (``csrc/search_descend.cu``) beside it: at each
+   shape the self-play cells search (``DESCEND_SHAPES``: ``solo_scout_5``
+   with victory points per game at B=128 and 300 simulations,
+   ``open_field_5`` at B=512 and 1,024 and 100 simulations), two self-play
+   moves with a stand-in linear net, the kernel against its plain version
+   ``mcts._descend_plain`` on the same tree at every descent, all five
+   outputs equal; then both timed as graphs of 32 descents on the last
+   trees (kernel, plain and bound in us a descent).  Phases 4 and 5 count
+   its launches: one per simulation, in the eager moves and in the capture
+   with its warm-up.
 
 The last two lines are a JSON summary of the kernels (with each hex-conv
 kernel's launches in phase 15, ``cli``, 16, ``heads``, and 17, rank 0's,
@@ -266,6 +276,15 @@ SCS_STEP_SHAPES = (("solo_scout_5", True, 128), ("open_field_5", False, 512),
                    ("open_field_5", False, 1024), ("sweep15", True, 64))
 SCS_STEP_TIMED = 32  # recorded steps a timed graph holds
 SCS_STEP_REPLAYS = 20
+DESCEND_SOURCE = "nuzero_tpu_torch/ops/cuda/csrc/search_descend.cu"
+# The kernel replaces no Pallas kernel: the JAX descent is a plain while_loop.
+DESCEND_REPLACES = "nuzero_tpu/search/mcts.py:144"
+# (scenario, per-game victory points, batch, simulations) of phase 18's
+# descent check: the shapes the self-play cells search (solo64, contested256
+# and the tower, contested256_b1024).
+DESCEND_SHAPES = (("solo_scout_5", True, 128, 300), ("open_field_5", False, 512, 100),
+                  ("open_field_5", False, 1024, 100))
+DESCEND_MOVES = 2  # self-play moves a shape's check plays, the second on carried trees
 # (filters, dtype name) of the two learner widths: the flagship and
 # scs_small.yaml's (the training recipe's default width).
 NETS = ((256, "bfloat16"), (64, "float32"))
@@ -756,6 +775,22 @@ def scs_step_graph(fn, pairs):
     return graph, outs, flag
 
 
+def median_replay_ms(graph) -> float:
+    """ms of one replay of ``graph``: the median of ``SCS_STEP_REPLAYS``
+    replays' CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(SCS_STEP_REPLAYS):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
 def scs_step_check(card):
     """Phase 18: the SCS env's step kernel against its plain version, the
     eager body ``SCSGame._step``, on the same card states at each shape of
@@ -776,17 +811,6 @@ def scs_step_check(card):
 
     def fields(state):
         return [getattr(state, f.name) for f in dataclasses.fields(state)]
-
-    def replay_ms(graph):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ms = []
-        for _ in range(SCS_STEP_REPLAYS):
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-        return statistics.median(ms)
 
     lines = []
     for scenario, randomize_vp, batch in SCS_STEP_SHAPES:
@@ -830,7 +854,7 @@ def scs_step_check(card):
                 if not all(torch.equal(g, e) for g, e in zip(fields(out), w)):
                     raise AssertionError(f"scs_step {label}: the {name} graph's step {i} "
                                          f"differs from the eager body")
-            ms[name] = replay_ms(graph) / len(pairs)
+            ms[name] = median_replay_ms(graph) / len(pairs)
             del graph, outs
         nbytes = 2 * sum(t.numel() * t.element_size() for t in fields(pairs[0][0]))
         nbytes += pairs[0][1].numel() * pairs[0][1].element_size()
@@ -846,6 +870,110 @@ def scs_step_check(card):
     return lines
 
 
+def search_descend_check(card):
+    """Phase 18 (the descent): the search's descent kernel against its plain
+    version, ``mcts._descend_plain``, at each shape of ``DESCEND_SHAPES``:
+    ``DESCEND_MOVES`` self-play moves with a stand-in linear net (priors as
+    varied as a trained net's, no hex conv), the kernel and the plain body
+    run on the same tree at every descent, all five outputs equal bit for bit
+    (``torch.equal``), one launch a descent.  Then, on the trees of the last
+    descent (the deepest), ``SCS_STEP_TIMED`` descents as two graphs, one of
+    the kernel (a node a descent) and one of the plain body (its depth steps
+    after the first a while-node, as the self-play move's graph held the
+    descent before the kernel), each output checked again, each replayed
+    ``SCS_STEP_REPLAYS`` times: ms a descent from the median replay.  The
+    bound is the bytes the descent needs (each game's visit and value-sum
+    rows, and for each depth it walks the node's prior, legal and child rows
+    and flags, the outputs) at the card's memory rate; the kernel is bound by
+    latency instead (its source note).  Returns one dict a shape."""
+    import torch
+
+    from nuzero_tpu_torch.ops.cuda import search_descend_kernel
+    from nuzero_tpu_torch.search import mcts
+    from nuzero_tpu_torch.training.selfplay import (
+        init_selfplay, make_selfplay_step, play_in_place,
+    )
+
+    names = ("stop_node", "sel_action", "needs_alloc", "path", "capped")
+    kernel_descend = mcts._descend
+    lines = []
+    for scenario, randomize_vp, batch, sims in DESCEND_SHAPES:
+        env = scs_step_env(scenario, randomize_vp)
+        label = f"{scenario} B={batch}"
+        gen = torch.Generator(device="cuda").manual_seed(2**31 + 3 * batch)
+        width = math.prod(env.observation_shape)
+        variables = {
+            "w": torch.randn(width, env.num_actions, generator=gen, device="cuda") * 2
+            / math.sqrt(width),
+            "v": torch.randn(width, generator=gen, device="cuda") / math.sqrt(width),
+        }
+
+        def apply(v, obs):
+            x = obs.reshape(obs.shape[0], -1).to(torch.float32)
+            return x @ v["w"], torch.tanh(x @ v["v"])
+
+        params = mcts.SearchParams(num_simulations=sims)
+        step = make_selfplay_step(env, apply, params, training=True)
+        sp = init_selfplay(env, batch, gen, search_params=params)
+        checked, last = [], {}
+
+        def descend(tree, p, depth_cap):
+            want = mcts._descend_plain(tree, p, depth_cap)
+            got = kernel_descend(tree, p, depth_cap)
+            differ = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+            if differ:
+                raise AssertionError(f"search_descend {label} descent {len(checked)}: the "
+                                     f"kernel differs from the plain body in {differ}")
+            checked.append(depth_cap)
+            if len(checked) == DESCEND_MOVES * sims:
+                last.update(tree=dataclasses.replace(
+                    tree, **{k: v.clone() for k, v in vars(tree).items()}), want=want)
+            return got
+
+        search_descend_kernel.reset_launch_count()
+        mcts._descend = descend
+        try:
+            for _ in range(DESCEND_MOVES):
+                play_in_place(step, variables, sp)
+        finally:
+            mcts._descend = kernel_descend
+        launches = search_descend_kernel.launch_count[search_descend_kernel.KERNEL]
+        if len(checked) != DESCEND_MOVES * sims or launches != len(checked):
+            raise AssertionError(f"search_descend {label}: {len(checked)} descents checked, "
+                                 f"{launches} launches, expected {DESCEND_MOVES * sims}")
+        tree, want, cap = last["tree"], last["want"], checked[-1]
+        ms = {}
+        for name, fn in (("kernel", kernel_descend), ("plain", mcts._descend_plain)):
+            graph, outs, flag = scs_step_graph(lambda t, _, fn=fn: fn(t, params, cap),
+                                               [(tree, None)] * SCS_STEP_TIMED)
+            graph.replay()
+            torch.cuda.synchronize()
+            if bool(flag):
+                raise AssertionError(f"search_descend {label}: the {name} graph overflowed")
+            for i, out in enumerate(outs):
+                if not all(torch.equal(g, w) for g, w in zip(out, want)):
+                    raise AssertionError(f"search_descend {label}: the {name} graph's descent "
+                                         f"{i} differs from the plain body")
+            ms[name] = median_replay_ms(graph) / SCS_STEP_TIMED
+            del graph, outs
+        B, N, A = tree.prior.shape
+        trips = (want[3] < N).sum(1)
+        nbytes = (B * N * 8 + B * 4 + int(trips.sum()) * (9 * A + 6)
+                  + B * (4 + 4 + 1 + 1 + 4 * cap))
+        line = {"scenario": scenario, "batch": batch, "simulations": sims, "nodes": N,
+                "descents_checked": len(checked), "mean_trips": float(trips.float().mean()),
+                "max_trips": int(trips.max()), "ms": ms["kernel"], "plain_ms": ms["plain"],
+                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+        log(f"search_descend {label} N={N}: {len(checked)} descents equal to the plain body "
+            f"bit for bit, one launch each; on the last trees ({line['mean_trips']:.2f} trips "
+            f"a game, {line['max_trips']} at most): kernel {1e3 * line['ms']:.2f} us, plain "
+            f"as a graph {1e3 * line['plain_ms']:.2f} us, bound {1e3 * line['bound_ms']:.3f} "
+            f"us (bytes), {100 * line['bound_ms'] / line['ms']:.1f}% of bound  [{card}]")
+        lines.append(line)
+        del sp, tree, last
+    return lines
+
+
 def selfplay_leg(filters, dtype, batch, card):
     """The eager moves, then the same moves as replays of the captured
     move, from the same state and generator state; returns (launches of the
@@ -854,7 +982,7 @@ def selfplay_leg(filters, dtype, batch, card):
     import torch
 
     from nuzero_tpu_torch.envs.scs.game import SCSGame
-    from nuzero_tpu_torch.ops.cuda import hexconv_kernel, scs_step_kernel
+    from nuzero_tpu_torch.ops.cuda import hexconv_kernel, scs_step_kernel, search_descend_kernel
     from nuzero_tpu_torch.search.mcts import SearchParams
     from nuzero_tpu_torch.training.selfplay import (
         capture_selfplay_step, init_selfplay, make_selfplay_step, move_tensors, play_in_place,
@@ -907,6 +1035,7 @@ def selfplay_leg(filters, dtype, batch, card):
     bi = torch.arange(batch, device="cuda")
     hexconv_kernel.reset_launch_count()
     scs_step_kernel.reset_launch_count()
+    search_descend_kernel.reset_launch_count()
     evals = 0
     for move in range(MOVES):
         before = int(sp.total_moves)
@@ -936,6 +1065,9 @@ def selfplay_leg(filters, dtype, batch, card):
         raise AssertionError(f"{evals} network evaluations, expected {(1 + SIMS) * MOVES}")
     if steps != (1 + SIMS) * MOVES:  # a step per simulation, and the move's own
         raise AssertionError(f"{steps} SCS step kernel launches, expected {(1 + SIMS) * MOVES}")
+    descents = search_descend_kernel.launch_count[search_descend_kernel.KERNEL]
+    if descents != SIMS * MOVES:  # carried trees: a descent per simulation
+        raise AssertionError(f"{descents} descent kernel launches, expected {SIMS * MOVES}")
     expected = {name: 0 for name in counts}
     expected[hexconv_kernel.KERNELS[dtype]] = CONVS_PER_EVAL * evals
     if counts != expected:
@@ -954,6 +1086,7 @@ def selfplay_leg(filters, dtype, batch, card):
     _, unpack, dim = make_packer(env.init(1))
     hexconv_kernel.reset_launch_count()
     scs_step_kernel.reset_launch_count()
+    search_descend_kernel.reset_launch_count()
     evals = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -962,10 +1095,12 @@ def selfplay_leg(filters, dtype, batch, card):
     capture_s = time.perf_counter() - t0
     captured = hexconv_kernel.launch_count[hexconv_kernel.KERNELS[dtype]]
     captured_steps = scs_step_kernel.launch_count[scs_step_kernel.KERNEL]
+    captured_descents = search_descend_kernel.launch_count[search_descend_kernel.KERNEL]
     if (evals != 2 * (1 + SIMS) or captured != CONVS_PER_EVAL * evals
-            or captured_steps != evals):
+            or captured_steps != evals or captured_descents != 2 * SIMS):
         raise AssertionError(f"warm-up and capture made {evals} evaluations, {captured} "
-                             f"hex-conv and {captured_steps} SCS step kernel launches")
+                             f"hex-conv, {captured_steps} SCS step and {captured_descents} "
+                             f"descent kernel launches")
     replayed, launched = [], []
     for move in range(MOVES):
         row = gsp.move_count.long()
@@ -3362,8 +3497,10 @@ def main() -> int:
                 f"{sums['bound_ms']:.4f} ms ({sums['bound_by']}), "
                 f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of bound  [{card}]")
 
-    # --- 18. the SCS env's step kernel against its plain version
+    # --- 18. the SCS env's step kernel and the search's descent kernel against
+    # their plain versions
     scs_step_lines = scs_step_check(card)
+    descend_lines = search_descend_check(card)
 
     # --- 6. backward kernel check, at the shapes of one training update
     dw_sums = {}
@@ -3526,6 +3663,21 @@ def main() -> int:
         "bound_by": "bytes",
         "at": f"{at['scenario']} B={at['batch']}",
         "shapes": scs_step_lines,
+    })
+    # The descent kernel: times at contested256's shape, and at every shape of
+    # phase 18 (the self-play legs hold its launches: a descent a simulation).
+    at = next(line for line in descend_lines if line["scenario"] == "open_field_5")
+    kernels.append({
+        "name": "search_descend_kernel",
+        "route": "cuda",
+        "source": DESCEND_SOURCE,
+        "replaces": DESCEND_REPLACES,
+        "launches": sum(line["descents_checked"] for line in descend_lines),
+        "max_abs_err": 0.0,
+        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": "bytes",
+        "at": f"{at['scenario']} B={at['batch']}",
+        "shapes": descend_lines,
     })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

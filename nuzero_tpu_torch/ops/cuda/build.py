@@ -146,9 +146,22 @@ def scs_step_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def search_descend_library() -> ctypes.CDLL:
+    """The search's PUCT descent kernel (``csrc/search_descend.cu``), built on
+    first call."""
+    lib = ctypes.CDLL(build("search_descend", ("search_descend.cu",)))
+    lib.search_descend.argtypes = [
+        *[ctypes.c_void_p] * 14, *[ctypes.c_int] * 4, *[ctypes.c_float] * 4, ctypes.c_void_p,
+    ]
+    lib.search_descend.restype = ctypes.c_int
+    return lib
+
+
 #: Every kernel library by name, with its loader (the source each builds).
 LIBRARIES = {"hexconv": hexconv_library, "hexconv_dw": hexconv_dw_library,
-             "graph_loop": graph_loop_library, "scs_step": scs_step_library}
+             "graph_loop": graph_loop_library, "scs_step": scs_step_library,
+             "search_descend": search_descend_library}
 
 
 def build_all() -> dict:

@@ -14,10 +14,11 @@ Counterpart of ``nuzero_tpu/search/mcts.py`` (behavioral target:
 - argmax ties break toward the first index everywhere.
 
 B games search at once and every simulation's leaves are evaluated in one
-batched network call.  The descent is a loop over depth with per-game
-masks; the depth steps after the first run through ``graphs.run_while``
-on "some game still descends", so that a captured move holds them as one
-while-node and an eager one stops at the first depth where no game
+batched network call.  On the card the descent is one launch of its kernel
+(``ops/cuda/csrc/search_descend.cu``, a warp per game).  Its plain version,
+the CPU's path, is a loop over depth with per-game masks; the depth steps
+after the first run through ``graphs.run_while`` on "some game still
+descends", so that an eager descent stops at the first depth where no game
 descends.  The trees are updated in place.
 
 Where the JAX search computes ``x / constant``, XLA compiles a multiply by
@@ -34,6 +35,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from nuzero_tpu_torch.ops.cuda.search_descend_kernel import search_descend_cuda
 from nuzero_tpu_torch.search.tree import Tree, child_stats, init_tree, reset_trees
 from nuzero_tpu_torch.utils import graphs
 from nuzero_tpu_torch.utils.packing import make_packer
@@ -168,7 +170,23 @@ def _puct_scores(tree: Tree, node: torch.Tensor, params: SearchParams):
 def _descend(tree: Tree, params: SearchParams, depth_cap: int):
     """Walk every game from its root to a frontier.  Returns (stop_node,
     sel_action, needs_alloc, path, capped); ``path`` [B, depth_cap] holds
-    the visited nodes, ``N`` (out of range) where unused."""
+    the visited nodes, ``N`` (out of range) where unused.
+
+    A tree on the card takes one launch of the descent kernel
+    (``search_descend_kernel.search_descend_cuda``), the same outputs bit for
+    bit as the plain body and one graph node under capture; a tree on the
+    CPU takes the plain body ``_descend_plain``."""
+    if tree.visit.device.type != "cuda":
+        return _descend_plain(tree, params, depth_cap)
+    return search_descend_cuda(
+        tree.root, tree.visit, tree.value_sum, tree.to_play, tree.expanded,
+        tree.is_terminal, tree.prior, tree.legal, tree.child, depth_cap,
+        params.pb_c_base, params.pb_c_init, params.value_factor)
+
+
+def _descend_plain(tree: Tree, params: SearchParams, depth_cap: int):
+    """``_descend``'s plain version: a loop over depth with per-game masks,
+    the steps after the first under ``graphs.run_while``."""
     B, N = tree.visit.shape
     dev = tree.visit.device
     bi = torch.arange(B, device=dev)

@@ -13,8 +13,10 @@
 #pragma once
 #include <atomic>
 #include <chrono>
+#include <cmath>
 #include <cstddef>
 #include <cstdio>
+#include <cstring>
 #include <thread>
 #include <unistd.h>
 #include <vector>
@@ -67,6 +69,7 @@ class ShimBarrier {
 ShimBarrier* shim_warp;
 unsigned shim_or[32];
 int shim_add[32];
+unsigned long long shim_shfl[32];
 
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp->arrive_and_wait(); }
 
@@ -88,9 +91,24 @@ inline int __reduce_add_sync(unsigned, int v) {
   return r;
 }
 
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  const unsigned lane = threadIdx.x & 31;
+  unsigned long long bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  shim_shfl[lane] = bits;
+  shim_warp->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &shim_shfl[lane ^ lane_mask], sizeof(T));
+  shim_warp->arrive_and_wait();
+  return r;
+}
+
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 

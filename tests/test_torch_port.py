@@ -95,7 +95,7 @@ LAYERS_BELOW = {
     "native": set(),
     "parallel": set(),
     "utils": {"native", "ops"},
-    "search": {"utils"},
+    "search": {"ops", "utils"},
     "networks": {"ops"},
     "envs": {"config.yaml_io", "ops", "utils"},
     "evaluation": {"config", "envs", "networks", "ops", "search", "utils"},
